@@ -1,48 +1,33 @@
-"""Extended benchmark suite: BASELINE.md measurement configs beyond #1.
+"""Extended benchmark suite: one JSON line per config, one GPU process each.
 
-Prints one JSON line per config (same schema as bench.py). Configs:
+    python bench_suite.py [--mb 8] [--stream-mb 64] [--chunk-mb 1]
+                          [--configs canterbury,ascii_text,table_5_30,hpack,streaming]
+
+Configs:
   canterbury   — deterministic Canterbury-equivalent corpus mix
-                 (tpu_huffman/corpora.py: english/html/source/csv/
-                 executable/fax categories; the real files can't be
-                 fetched in this zero-egress environment, so generators
-                 with documented construction replace them), encoded with
-                 a table built from the corpus (build_table)
-  ascii_text   — the round-1 skewed English-like stand-in (kept for
-                 cross-round comparability), static test table
+                 (tpu_huffman/corpora.py), encoded with a table built from
+                 the corpus (build_table)
+  ascii_text   — skewed English-like text, static test table
   table_5_30   — canonical table with code lengths spanning 5..30 bits
-                 (BASELINE config 3)
+  hpack        — RFC 7541 table on HTTP-header-like text
   streaming    — chunked SHORT_BUFFER-protocol round trip, 1 MiB output
-                 chunks (BASELINE config 4, scaled to --stream-mb)
+                 chunks
 
-Protocol per MEASURING.md (REVISED 2026-08-18): in-program loop slope —
-the same ``lax.fori_loop`` carry-chain protocol as bench.py (dependency
-chains still pay ~2 ms of dispatch overhead PER STEP on this rig and
-overstate small kernels; the loop slope cancels it). Transfers and
-correctness checks come after the clocks stop.
+Each config runs in a child process, one after the other, so exactly one
+process holds the card at a time; this parent never initializes a JAX
+backend. Times are host-clock wall times through the public entry points
+(bench.py), checked against the C++ oracle.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
 import numpy as np
-
-
-def _enable_compile_cache():
-    """Persistent XLA compile cache: timing excludes compiles (warmup +
-    loop-slope protocol), but a cold suite pays minutes of kernel compiles
-    per config process; the cache makes repeat runs feasible."""
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/tpu_huffman_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-
-
-_enable_compile_cache()
 
 
 def mixed_lengths_5_30() -> dict[int, int]:
@@ -75,37 +60,6 @@ def mixed_lengths_5_30() -> dict[int, int]:
     return lens
 
 
-def hpack_header_corpus(n: int, seed: int = 7) -> bytes:
-    """Deterministic HTTP-header-like text: the workload of the reference's
-    one downstream consumer (aws-c-http HPACK header compression,
-    reference: builder.json:6-8, README.md:176-183). Field names/values
-    drawn from common headers with varied tokens — the byte distribution
-    (lowercase, digits, '-', '/', ';') is what RFC 7541's code lengths
-    were fit to, so 5-7-bit codes dominate, unlike the uniform-ish
-    synthetic tables."""
-    rng = np.random.default_rng(seed)
-    names = [b"content-type", b":authority", b":path", b"accept-encoding",
-             b"user-agent", b"cache-control", b"x-amz-request-id", b"etag",
-             b"date", b"content-length", b"x-forwarded-for", b"cookie"]
-    words = [b"text/html; charset=utf-8", b"gzip, deflate, br",
-             b"max-age=31536000, immutable", b"www.example.com",
-             b"application/json", b"keep-alive", b"/index.html",
-             b"Mozilla/5.0 (X11; Linux x86_64) AppleWebKit/537.36",
-             b"no-cache", b"session=abc123def456; path=/; httponly"]
-    out = bytearray()
-    while len(out) < n:
-        nm = names[int(rng.integers(len(names)))]
-        if rng.random() < 0.4:
-            val = words[int(rng.integers(len(words)))]
-        else:
-            val = (str(rng.integers(10 ** 9)).encode() if rng.random() < 0.5
-                   else bytes(rng.integers(97, 123, size=int(rng.integers(4, 24)), dtype=np.uint8)))
-        # HPACK huffman-codes bare name/value strings (no line framing;
-        # CR/LF are 30/28-bit codes that never appear in legal values).
-        out += nm + val
-    return bytes(out[:n])
-
-
 def english_like_corpus(n: int, seed: int = 7) -> bytes:
     rng = np.random.default_rng(seed)
     alphabet = np.frombuffer(b" etaoinshrdlcumwfgypbvkjxqz.,;'\"!?-\n", dtype=np.uint8)
@@ -118,141 +72,9 @@ def english_like_corpus(n: int, seed: int = 7) -> bytes:
     return rng.choice(alphabet, size=n, p=weights).astype(np.uint8).tobytes()
 
 
-# One timing protocol for every bench (min-T loop-slope estimator over a
-# sampling window; see bench._loop_times for the full rationale).
-from bench import _loop_times
-
-# Default sampling window per corpus config. Shorter than bench.py's
-# headline window: the suite runs several configs and the per-config
-# number is already quoted with period-range caveats in BASELINE.md.
-WINDOW_S = 60.0
-
-
-def _loop_time(body, k_lo=9, k_hi=65, window_s=0.0):
-    """True per-iteration seconds via in-program loop slope (bench.py)."""
-    return _loop_times([body], k_lo=k_lo, k_hi=k_hi, window_s=window_s)[0]
-
-
-def bench_corpus(name, data_np, table, K, reps, emit):
-    """Device encode+decode timing for one (corpus, table) pair."""
-    import jax
-    import jax.numpy as jnp
-
-    from tpu_huffman.ops.bitpack import bytes_from_words_np, words_from_bytes_np
-    from tpu_huffman.ops.encode import best_encode_step
-    from tpu_huffman.ops.pallas_decode import (
-        LANES, _decode_pipeline, _use_interpret, structure_for, supports,
-    )
-    from tpu_huffman.ops.decode import BlockIndex
-    from tpu_huffman import oracle
-
-    n = data_np.size
-    data = data_np.tobytes()
-    assert supports(table, K)
-    struct = structure_for(table)
-    p32_flat = tuple(x for row in struct.p32 for x in row)
-    # Split-plan decode (round 5): plan the kernel on the corpus's actual
-    # code-length envelope (what decode_indexed does via the index's
-    # max_code_len) — shorter interval chains + more window reuse.
-    from tpu_huffman.ops.pallas_decode import capped_intervals
-
-    eff = int(table.lengths[data_np].max())
-    iv = capped_intervals(struct.intervals, eff) or struct.intervals
-    symbols = jnp.asarray(data_np)
-
-    # The sample-planned span envelope is the production steady state
-    # (pallas_encode._run learns it adaptively); the overflow flag is
-    # checked in enc_finalize after the clocks stop.
-    encode_fn, enc_finalize = best_encode_step(table, n, K, sample=data_np)
-
-    def enc_body(i, carry):
-        sym = symbols ^ carry.astype(jnp.uint8)
-        words, total_bits, padded_bits = encode_fn(sym)
-        return carry ^ words.sum(dtype=jnp.uint32) ^ total_bits.astype(jnp.uint32)
-
-    ot = oracle.OracleTable(table)
-    encoded = oracle.OracleEncoder(ot).encode(data)
-    # Dual-chain decode: a K/2-granular index paired into K-symbol lanes
-    # of two interleaved half-chains (latency-bound kernel).
-    Kh = K // 2
-    lens64 = table.lengths[data_np].astype(np.int64)
-    ends = np.cumsum(lens64)
-    n_blocks = -(-n // Kh)
-    offsets = np.zeros(n_blocks, dtype=np.int64)
-    starts_idx = np.arange(n_blocks) * Kh
-    offsets[1:] = ends[starts_idx[1:] - 1]
-    n_sym = np.full(n_blocks, Kh, dtype=np.int32)
-    n_sym[-1] = n - (n_blocks - 1) * Kh
-
-    words_np, _ = words_from_bytes_np(encoded)
-    words_np = np.concatenate([words_np, np.zeros(2, np.uint32)])
-    from tpu_huffman.ops.pallas_decode import (
-        _decode_pipeline_dual, pair_dual_inputs,
-    )
-    base, rel, relm, nsm, nbp, Wb, Wbh, G = pair_dual_inputs(
-        offsets, n_sym, int(ends[-1]), table, Kh
-    )
-    Bp = G * LANES
-    jw, jb, jr, jm, jn = map(jnp.asarray, (words_np, base, rel, relm, nsm))
-    interp = _use_interpret()
-
-    def dec_body(i, carry):
-        w = jw ^ carry
-        out, end, bad = _decode_pipeline_dual(
-            w, jb, jr, jm, jn, Kh, Wb, Wbh, G, iv, p32_flat,
-            interp,
-        )
-        return (
-            carry
-            ^ out.sum(dtype=jnp.uint32)
-            ^ end.sum(dtype=jnp.int32).astype(jnp.uint32)
-            ^ bad.astype(jnp.uint32)
-        )
-
-    # Interleaved sampling: encode and decode share the window so both see
-    # the same chip periods (a fast-period encode next to a slow-period
-    # decode would skew the combined number).
-    win = WINDOW_S if jax.default_backend() == "tpu" else 0.0
-    enc_s, dec_s = _loop_times([enc_body, dec_body], k_hi=257, window_s=win)
-
-    # clocks stopped: verify
-    enc_out = enc_finalize(symbols)
-    dec_out = _decode_pipeline_dual(
-        jw, jb, jr, jm, jn, Kh, Wb, Wbh, G, iv, p32_flat, interp
-    )
-    d_padded = enc_out[2]
-    enc_bytes = bytes_from_words_np(np.asarray(enc_out[0]), int(d_padded) // 8)
-    assert enc_bytes == encoded, f"{name}: device encode != oracle"
-    flat = (
-        np.ascontiguousarray(np.asarray(dec_out[0]))
-        .view(np.uint8)
-        .reshape(Bp, 2 * Kh)[:nbp]
-    )
-    assert flat.reshape(-1)[:n].tobytes() == data, f"{name}: decode mismatch"
-
-    # oracle baseline on a quarter corpus
-    n_or = max(n // 4, 1 << 20)
-    t0 = time.perf_counter(); enc_o = oracle.OracleEncoder(ot).encode(data[:n_or]); o_enc = time.perf_counter() - t0
-    t0 = time.perf_counter(); out_o = oracle.OracleDecoder(ot).decode(enc_o); o_dec = time.perf_counter() - t0
-    assert out_o == data[:n_or]
-
-    gbps = 2 * n / (enc_s + dec_s) / 1e9 / 2
-    o_gbps = 2 * n_or / (o_enc + o_dec) / 1e9 / 2
-    emit({
-        "metric": f"codec_throughput_{name}",
-        "value": round(gbps, 4),
-        "unit": "GB/s",
-        "vs_baseline": round(gbps / o_gbps, 3),
-        "detail": {
-            "encode_gbps": round(n / enc_s / 1e9, 3),
-            "decode_gbps": round(n / dec_s / 1e9, 3),
-            "ratio": round(len(encoded) / n, 4),
-        },
-    })
-
-
-def bench_streaming(table, stream_mb, chunk_mb, emit):
-    """Chunked SHORT_BUFFER-protocol round trip (BASELINE config 4)."""
+def bench_streaming(table, stream_mb, chunk_mb) -> dict:
+    """Chunked SHORT_BUFFER-protocol round trip: capacity-bounded encode,
+    fed decode, and capacity-bounded decode drains."""
     import tpu_huffman as th
     from tpu_huffman import oracle
 
@@ -261,84 +83,100 @@ def bench_streaming(table, stream_mb, chunk_mb, emit):
     data = rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
     cap = int(chunk_mb * (1 << 20))
 
-    # Warmup: one full untimed pass of every protocol the timed loops run.
-    # A short-prefix warmup misses the tail-chunk shapes (the final calls'
-    # smaller symbol counts) and the retained-buffer growth buckets, and
-    # each missed shape costs a 5-17 s compile-cache load inside the timed
-    # loop (round 5; the fused one-dispatch programs are large graphs).
-    warm_enc = th.HuffmanEncoder(table)
-    pending = data
-    blob = []
-    while True:
-        r = warm_enc.encode_chunk(pending, cap)
-        blob.append(r.data)
-        pending = pending[r.consumed:]
-        if r.done:
-            break
-    blob = b"".join(blob)
-    wd = th.HuffmanDecoder(table)
-    for i in range(0, len(blob), cap):
-        wd.decode_chunk(blob[i:i + cap])
-    wc = th.HuffmanDecoder(table)
-    r = wc.decode_chunk(blob, capacity=cap)
-    while not r.done:
-        r = wc.decode_chunk(b"", capacity=cap)
+    def encode_all():
+        enc = th.HuffmanEncoder(table)
+        out, pending = [], data
+        while True:
+            r = enc.encode_chunk(pending, cap)
+            out.append(r.data)
+            pending = pending[r.consumed:]
+            if r.done:
+                return b"".join(out)
 
-    enc = th.HuffmanEncoder(table)
+    def decode_fed(encoded):
+        dec = th.HuffmanDecoder(table)
+        return b"".join(
+            dec.decode_chunk(encoded[i:i + cap]).data
+            for i in range(0, len(encoded), cap)
+        )
+
+    def decode_capped(encoded):
+        dec = th.HuffmanDecoder(table)
+        r = dec.decode_chunk(encoded, capacity=cap)
+        out = [r.data]
+        while not r.done:
+            r = dec.decode_chunk(b"", capacity=cap)
+            out.append(r.data)
+        return b"".join(out)
+
+    encoded = encode_all()  # warm every shape once
+    decode_fed(encoded)
+    decode_capped(encoded)
     t0 = time.perf_counter()
-    out = []
-    pending = data
-    while True:
-        res = enc.encode_chunk(pending, cap)
-        out.append(res.data)
-        pending = pending[res.consumed:]
-        if res.done:
-            break
+    encoded = encode_all()
     t_enc = time.perf_counter() - t0
-    encoded = b"".join(out)
-
-    dec = th.HuffmanDecoder(table)
+    assert encoded == oracle.oracle_encode(data, table), "chunked encode != oracle"
     t0 = time.perf_counter()
-    got = []
-    step = cap
-    for i in range(0, len(encoded), step):
-        got.append(dec.decode_chunk(encoded[i:i + step]).data)
+    assert decode_fed(encoded) == data, "fed decode mismatch"
     t_dec = time.perf_counter() - t0
-    plain = b"".join(got)
-    assert plain == data, "streaming round-trip mismatch"
-
-    # Output-capacity-bounded decode (the SHORT_BUFFER resume protocol,
-    # reference huffman.c:257-268): feed everything, then drain `cap`
-    # symbols per call through the capped self-sync fast path.
-    dec2 = th.HuffmanDecoder(table)  # warmed by the full-protocol pass above
     t0 = time.perf_counter()
-    got2 = []
-    r = dec2.decode_chunk(encoded, capacity=cap)
-    got2.append(r.data)
-    rounds = 1
-    while not r.done:
-        r = dec2.decode_chunk(b"", capacity=cap)
-        got2.append(r.data)
-        rounds += 1
-    t_capped = time.perf_counter() - t0
-    assert b"".join(got2) == data, "capped round-trip mismatch"
-    ot = oracle.OracleTable(table)
-    assert oracle.OracleEncoder(ot).encode(data[:1 << 20]) == th.encode(data[:1 << 20], table)
-
-    gbps = 2 * n / (t_enc + t_dec) / 1e9 / 2
-    emit({
+    assert decode_capped(encoded) == data, "capped decode mismatch"
+    t_cap = time.perf_counter() - t0
+    return {
         "metric": "streaming_chunked_throughput",
-        "value": round(gbps, 4),
+        "value": n / (t_enc + t_dec) / 1e9,
         "unit": "GB/s",
-        "vs_baseline": None,
         "detail": {
-            "encode_gbps": round(n / t_enc / 1e9, 3),
-            "decode_gbps": round(n / t_dec / 1e9, 3),
-            "capped_decode_gbps": round(n / t_capped / 1e9, 3),
-            "capped_rounds": rounds,
-            "chunks": -(-len(encoded) // cap),
+            "encode_gbps": n / t_enc / 1e9,
+            "decode_gbps": n / t_dec / 1e9,
+            "capped_decode_gbps": n / t_cap / 1e9,
         },
-    })
+    }
+
+
+def run_config(config: str, args) -> dict:
+    from bench import codec_cell, require_gpu
+    from tpu_huffman import cache
+
+    cache.enable()
+    device = require_gpu()
+    import tpu_huffman as th
+    from tpu_huffman import corpora
+
+    n = int(args.mb * (1 << 20))
+    if config == "streaming":
+        out = bench_streaming(th.load_static_test_table(), args.stream_mb,
+                              args.chunk_mb)
+    else:
+        if config == "canterbury":
+            corpus = corpora.canterbury_like(n, seed=42)
+            # the table is built from the data (package-merge, <= 14 bits)
+            table = th.build_table(corpus, max_len=14, name="canterbury_built")
+        elif config == "ascii_text":
+            table = th.load_static_test_table()
+            corpus = english_like_corpus(n)
+        elif config == "table_5_30":
+            table = th.make_canonical(mixed_lengths_5_30(), name="mixed_5_30")
+            # corpus matched to the table: geometric weights over length
+            rng = np.random.default_rng(3)
+            lens = table.lengths.astype(np.float64)
+            w = np.where(lens > 0, 2.0 ** -lens, 0.0)
+            corpus = rng.choice(256, size=n, p=w / w.sum()).astype(np.uint8).tobytes()
+        elif config == "hpack":
+            table = th.load_hpack_table()
+            corpus = corpora.hpack_headers(n)
+        else:
+            raise SystemExit(f"unknown config {config!r}")
+        cell = codec_cell(corpus, table, args.reps)
+        out = {
+            "metric": f"codec_throughput_{config}",
+            "value": cell["codec_gbps"],
+            "unit": "GB/s",
+            "vs_baseline": cell["codec_gbps"] / cell["oracle_codec_gbps"],
+            "detail": cell,
+        }
+    out["device"] = device
+    return out
 
 
 def main():
@@ -346,74 +184,31 @@ def main():
     ap.add_argument("--mb", type=float, default=8.0)
     ap.add_argument("--stream-mb", type=float, default=64.0)
     ap.add_argument("--chunk-mb", type=float, default=1.0)
-    ap.add_argument("--repeats", type=int, default=25)
+    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument(
         "--configs", default="canterbury,ascii_text,table_5_30,hpack,streaming"
     )
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     configs = args.configs.split(",")
-    if len(configs) > 1:
-        # One subprocess per config: a D2H transfer permanently degrades a
-        # process's dispatch latency (MEASURING.md), so each config's timing
-        # must run in a fresh process.
-        import subprocess
-
-        for c in configs:
-            sub = subprocess.run(
-                [sys.executable, __file__, "--configs", c,
-                 "--mb", str(args.mb), "--stream-mb", str(args.stream_mb),
-                 "--chunk-mb", str(args.chunk_mb), "--repeats", str(args.repeats)],
-                capture_output=True, text=True,
-            )
-            sys.stdout.write(sub.stdout)
-            sys.stdout.flush()
-            if sub.returncode:
-                sys.stderr.write(sub.stderr)
+    if args.child:
+        print(json.dumps(run_config(configs[0], args)), flush=True)
         return
-
-    import tpu_huffman as th
-
-    def emit(obj):
-        print(json.dumps(obj), flush=True)
-
-    config = configs[0]
-    n = int(args.mb * (1 << 20))
-    if config == "canterbury":
-        from tpu_huffman import corpora
-
-        corpus = np.frombuffer(corpora.canterbury_like(n, seed=42), dtype=np.uint8)
-        # Realistic use of a static-Huffman codec on a known corpus class:
-        # the table is built from the data (package-merge optimal, <=14 bit).
-        table = th.build_table(corpus, max_len=14, name="canterbury_built")
-        bench_corpus("canterbury", corpus, table, 512, args.repeats, emit)
-    elif config == "ascii_text":
-        table = th.load_static_test_table()
-        corpus = np.frombuffer(english_like_corpus(n), dtype=np.uint8)
-        bench_corpus("ascii_text", corpus, table, 512, args.repeats, emit)
-    elif config == "table_5_30":
-        t530 = th.make_canonical(mixed_lengths_5_30(), name="mixed_5_30")
-        assert t530.max_len >= 25, t530.max_len
-        # Corpus matched to the table (short codes frequent), the realistic
-        # use of a custom table; geometric-ish weights over code length.
-        rng = np.random.default_rng(3)
-        lens = t530.lengths.astype(np.float64)
-        w = np.where(lens > 0, 2.0 ** -lens, 0.0)
-        w = w / w.sum()
-        corpus = rng.choice(256, size=n, p=w).astype(np.uint8)
-        # K=512 decode index: the interleaved deep-table sweep measured
-        # K=256 ~8% slower (BASELINE.md round-2 item 3).
-        bench_corpus("table_5_30", corpus, t530, 512, args.repeats, emit)
-    elif config == "hpack":
-        # BASELINE config 1's production shape (round 4, VERDICT r3 #5):
-        # the real RFC 7541 table on header-like text — what the
-        # reference's downstream consumer actually runs.
-        table = th.load_hpack_table()
-        corpus = np.frombuffer(hpack_header_corpus(n), dtype=np.uint8)
-        bench_corpus("hpack", corpus, table, 512, args.repeats, emit)
-    elif config == "streaming":
-        table = th.load_static_test_table()
-        bench_streaming(table, args.stream_mb, args.chunk_mb, emit)
+    rc = 0
+    for c in configs:
+        sub = subprocess.run(
+            [sys.executable, __file__, "--child", "--configs", c,
+             "--mb", str(args.mb), "--stream-mb", str(args.stream_mb),
+             "--chunk-mb", str(args.chunk_mb), "--reps", str(args.reps)],
+            capture_output=True, text=True,
+        )
+        sys.stdout.write(sub.stdout)
+        sys.stdout.flush()
+        if sub.returncode:
+            sys.stderr.write(sub.stderr)
+            rc = sub.returncode
+    sys.exit(rc)
 
 
 if __name__ == "__main__":

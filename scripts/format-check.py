@@ -2,7 +2,7 @@
 """Format gate for cpp/ (reference parity: format-check.py).
 
 Runs clang-format --dry-run --Werror when available. When clang-format is
-NOT installed this gate does not silently pass (VERDICT r1 item 7): it
+NOT installed this gate does not silently pass: it
 falls back to a built-in mechanical check of the invariants our
 .clang-format guarantees (100-column limit, no tabs, no trailing
 whitespace, newline at EOF, no CRLF) and exits nonzero on violations —

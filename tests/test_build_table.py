@@ -84,10 +84,17 @@ def test_build_table_single_symbol():
 
 
 def test_built_table_is_range_monotone():
-    """Constructed tables always take the Pallas fast path."""
-    from tpu_huffman.ops.pallas_decode import structure_for
+    """Constructed tables are canonical — each code length's codes form one
+    consecutive range — and take the lane kernel like any table."""
+    from tpu_huffman.ops import lanes
 
     rng = np.random.default_rng(9)
     data = rng.integers(0, 256, size=10_000, dtype=np.uint8).tobytes()
     table = th.build_table(data=data, max_len=14)
-    assert structure_for(table) is not None
+    for L in np.unique(table.lengths[table.lengths > 0]):
+        codes = np.sort(table.patterns[table.lengths == L].astype(np.int64))
+        assert (np.diff(codes) == 1).all(), L
+    lt = lanes.LaneTable(table)
+    assert lt.has_l1 == (table.max_len > table.root_bits)
+    enc, idx = th.encode_with_index(data[:2000], table, block_symbols=16)
+    assert th.decode_indexed(enc, idx, table, impl="interpret") == data[:2000]

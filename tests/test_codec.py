@@ -183,3 +183,16 @@ def test_corpora_deterministic_and_roundtrip():
     assert mix == corpora.canterbury_like(8192, seed=42)
     enc = th.encode(mix, table_static)
     assert th.decode(enc, table_static) == mix
+
+
+def test_encode_with_index_guards_int32_wrap(table, monkeypatch):
+    """One indexed encode call carries int32 device bit offsets: inputs
+    that may exceed 2^31 encoded bits raise instead of wrapping."""
+    from tpu_huffman import stream as stream_mod
+
+    data = bytes(range(256)) * 8
+    monkeypatch.setattr(stream_mod, "_ONE_SHOT_BIT_LIMIT", 1 << 12)
+    with pytest.raises(ValueError, match="2\\^31"):
+        th.encode_with_index(data, table)
+    # th.encode auto-segments the same input instead, bit-identically
+    assert th.encode(data, table) == th.HuffmanEncoder(table).encode(data)

@@ -1,7 +1,7 @@
 """Determinism tier (SURVEY.md §5: the JAX-path analog of race detection).
 
 The reference's concurrency story is sanitizer CI on single-threaded code;
-the TPU build's analog is proving every parallel path is a pure function:
+this build's analog is proving every parallel path is a pure function:
 repeated runs and alternative kernels must produce byte-identical output.
 """
 
@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 import tpu_huffman as th
-from tpu_huffman.ops import pallas_decode, selfsync
+from tpu_huffman.ops import selfsync
 from tpu_huffman.shard import MeshCodec, default_mesh
 
 
@@ -30,16 +30,18 @@ def test_encode_is_deterministic(table, corpus):
 
 def test_all_decode_paths_agree(table, corpus):
     enc, idx = th.encode_with_index(corpus, table, block_symbols=16)
-    sequential = th.decode(enc, table)            # scan state machine
-    indexed = pallas_decode.decode_indexed_pallas(enc, idx, table)
-    selfsynced = selfsync.selfsync_decode(enc, table, seg_words=4)
-    assert sequential == indexed == selfsynced == corpus
+    # a max_output bound forces the sequential scan state machine
+    sequential = th.decode(enc, table, max_output=len(corpus) + 8)
+    indexed = th.decode_indexed(enc, idx, table, impl="interpret")
+    selfsynced = selfsync.selfsync_decode(enc, table, seg_words=4,
+                                          impl="interpret")
+    assert sequential == indexed == selfsynced == th.decode(enc, table) == corpus
 
 
 def test_selfsync_repeat_runs_identical(table, corpus):
     enc = th.encode(corpus, table)
-    a = selfsync.selfsync_decode(enc, table, seg_words=4)
-    b = selfsync.selfsync_decode(enc, table, seg_words=4)
+    a = selfsync.selfsync_decode(enc, table, seg_words=4, impl="interpret")
+    b = selfsync.selfsync_decode(enc, table, seg_words=4, impl="interpret")
     assert a == b == corpus
 
 

@@ -4,14 +4,15 @@ Two CPU processes × 4 virtual devices, coordinated through
 jax.distributed.initialize; MeshCodec runs over the global 8-device mesh
 and every process must produce reference-identical bytes.
 
-Round-2 hardening (VERDICT r1 items 5+8):
+Hardening:
   * encode_global feeds each host's LOCAL shard only — the worker instruments
     every cross-host gather and asserts no payload is input-sized (the raw
     input is never replicated; only compressed words + O(blocks) metadata
     travel).
   * shard lengths are UNEQUAL across hosts (interior padding masked by
     per-block valid counts).
-  * both the 1-D data mesh and the 2-D (dcn × ici) mesh are exercised.
+  * both the 1-D data mesh and the 2-D (process × local) mesh are
+    exercised.
   * a timed-out bring-up retries once and then FAILS (no silent skip).
 """
 
@@ -60,7 +61,7 @@ def spy(x, tiled=False):
 multihost_utils.process_allgather = spy
 
 table = th.load_static_test_table()
-mesh = dist.dcn_ici_mesh() if meshkind == "dcn_ici" else dist.global_data_mesh()
+mesh = dist.process_local_mesh() if meshkind == "dcn_ici" else dist.global_data_mesh()
 codec = th.MeshCodec(table, mesh, block_symbols=256)
 
 rng = np.random.default_rng(77)
@@ -115,7 +116,6 @@ def _run_pod(tmp_path, meshkind: str):
     return list(zip(procs, outs))
 
 
-@pytest.mark.skipif(os.environ.get("TPU_HUFFMAN_TEST_TPU"), reason="CPU-only tier")
 @pytest.mark.parametrize("meshkind", ["data", "dcn_ici"])
 def test_two_process_fake_pod(tmp_path, meshkind):
     results = _run_pod(tmp_path, meshkind)

@@ -1,84 +1,54 @@
-"""Arbitrary (non-range-monotone) prefix-free tables on the TPU fast paths.
+"""Arbitrary (non-canonical) prefix-free tables on the parallel decodes.
 
 The reference generator accepts ANY prefix tree (reference:
 source/huffman_generator/generator.c:236-278), not just canonical ones.
-Round 1 routed such tables to a CPU fallback; these tests pin the round-2
-contract: the Pallas indexed decoder and the self-sync foreign-stream
-decoder handle them natively via the predecessor-search window decoder
-(ops/pallas_decode.py Predecessor).
+The lane decode (ops/lanes.py) looks symbols up in the table's two-level
+LUT, which any prefix-free table has, so the indexed and the self-sync
+decoders handle these tables on the same path as canonical ones.
 
 Non-monotone tables are produced by a random prefix-tree automorphism
 (flip each node's children by a pseudorandom bit of its prefix) — exactly
 the degree of freedom the reference's generator tolerates: it preserves
 prefix-freeness and code lengths while destroying the consecutive-codes
-structure the interval decoder needs.
+structure of canonical codes.
 """
-
-import hashlib
 
 import numpy as np
 import pytest
 
 import tpu_huffman as th
 from tpu_huffman import oracle
-from tpu_huffman.ops import pallas_decode as pd
-from tpu_huffman.ops import selfsync
-from tpu_huffman.tables import CodeSpec, HuffmanTable
-
-
-def tree_shuffle(table: HuffmanTable, seed: int) -> HuffmanTable:
-    """Random prefix-tree automorphism; preserves lengths + prefix-freeness."""
-
-    def flip(prefix: str) -> int:
-        return hashlib.sha256((str(seed) + prefix).encode()).digest()[0] & 1
-
-    specs = []
-    for s in table.specs():
-        bits = format(s.pattern, f"0{s.num_bits}b")
-        out = ""
-        for b in bits:
-            out += str(int(b) ^ flip(out))
-        specs.append(CodeSpec(s.symbol, s.num_bits, int(out, 2)))
-    return HuffmanTable.from_specs(specs, name=table.name + "_shuf")
+from tpu_huffman.ops import lanes, selfsync
+from tpu_huffman.testing import tree_shuffle
 
 
 @pytest.fixture(scope="module")
 def shuffled():
-    t = tree_shuffle(th.load_static_test_table(), 42)
-    assert pd.structure_for(t) is None  # genuinely non-monotone
+    base = th.load_static_test_table()
+    t = tree_shuffle(base, 42)
+    # genuinely non-canonical: same lengths, other codes
+    assert (t.lengths == base.lengths).all()
+    assert (t.patterns != base.patterns).any()
     return t
 
 
-def test_dispatch_selects_decoder(shuffled):
-    iv, aux = pd.decode_dispatch(th.load_static_test_table())
-    assert iv is not None
-    iv2, aux2 = pd.decode_dispatch(shuffled)
-    assert iv2 is None and len(aux2) == 7
-    assert pd.supports(shuffled, 32)
+def test_lane_table_for_nonmonotone(shuffled):
+    lt = lanes.LaneTable.for_table(shuffled)
+    assert lt.root_bits == shuffled.root_bits == 10
+    assert not lt.has_l1  # 10-bit codes fit the root level
+    np.testing.assert_array_equal(lt.lut0 & 0xFF, shuffled.l0_bits & 0xFF)
+    np.testing.assert_array_equal(lt.lut0 >> 8, shuffled.l0_val)
+    assert lt != lanes.LaneTable(th.load_static_test_table())
     assert selfsync.supports(shuffled)
 
 
-def _pred_scalar(key, w):
-    """Host mirror of the kernel's predecessor search (same arithmetic)."""
-    bounds, ents, cnt_less, steps, m, _mn, _mx = key
-    r = cnt_less[w >> 24] - 1
-    bsel = bounds[max(r, 0)]
-    for kbit in range(steps - 1, -1, -1):
-        cand = r + (1 << kbit)
-        bc = bounds[min(cand, 255)]
-        if cand < m and bc <= w:
-            r, bsel = cand, bc
-    e = ents[max(r, 0)]
-    ln, sym = e >> 8, e & 0xFF
-    if ln > 0 and ((w ^ bsel) >> ((32 - ln) & 31)) == 0:
-        return sym, ln
-    return 0, 0
-
-
 @pytest.mark.parametrize("seed", [1, 9])
-def test_predecessor_matches_lut_decode(seed):
-    """Predecessor search == two-level LUT decode on every window probed,
-    across table shapes (incl. the 30-bit HPACK table, shuffled)."""
+def test_lane_lookup_matches_lut_decode(seed):
+    """The lane decode's packed lookup == the table's scalar LUT decode on
+    every window probed, across table shapes (incl. the 30-bit HPACK
+    table, shuffled, whose long codes take the level-1 subtables)."""
+    import jax.numpy as jnp
+
     tables = [
         tree_shuffle(th.load_static_test_table(), seed),
         tree_shuffle(th.load_hpack_table(), seed),
@@ -86,15 +56,24 @@ def test_predecessor_matches_lut_decode(seed):
     ]
     rng = np.random.default_rng(seed)
     for t in tables:
-        key = pd.predecessor_structure_for(t).key
         wins = list(rng.integers(0, 1 << 32, size=3000, dtype=np.uint64))
         wins += [
             int(t.patterns[s]) << (32 - int(t.lengths[s]))
             for s in range(256)
             if t.lengths[s]
         ]
-        for w in map(int, wins):
-            assert _pred_scalar(key, w) == t.decode_window(w), (t.name, hex(w))
+        lt = lanes.LaneTable(t)
+        w = jnp.asarray(np.asarray(wins, np.uint64).astype(np.uint32))
+        sym, ln = lanes._lookup(
+            jnp.asarray(lt.lut0), jnp.asarray(lt.lut1), w, lt.root_bits,
+            lt.has_l1,
+        )
+        sym, ln = np.asarray(sym), np.asarray(ln)
+        for k, win in enumerate(map(int, wins)):
+            want_sym, want_ln = t.decode_window(win)
+            assert (int(sym[k]) if want_ln else 0, int(ln[k])) == (
+                want_sym, want_ln
+            ), (t.name, hex(win))
 
 
 @pytest.mark.slow
@@ -102,14 +81,14 @@ def test_indexed_kernel_roundtrip_nonmonotone(shuffled):
     rng = np.random.default_rng(0)
     data = rng.integers(0, 256, size=700, dtype=np.uint8).tobytes()
     enc, idx = th.encode_with_index(data, shuffled, block_symbols=8)
-    assert pd.decode_indexed_pallas(enc, idx, shuffled) == data
+    assert th.decode_indexed(enc, idx, shuffled, impl="interpret") == data
     # bytes match the reference-semantics C++ oracle
     assert oracle.oracle_encode(data, shuffled) == enc
 
 
 @pytest.mark.slow
 def test_indexed_poison_nonmonotone(shuffled):
-    """Corrupt stream under the predecessor decoder raises like the
+    """Corrupt stream under a non-canonical table raises like the
     reference (source/huffman.c:246)."""
     data = bytes(range(256)) * 2
     enc, idx = th.encode_with_index(data, shuffled, block_symbols=8)
@@ -122,13 +101,15 @@ def test_indexed_poison_nonmonotone(shuffled):
     mask = ((1 << w) - 1) << (total - off - w)
     bits = (bits & ~mask) | (int(bad_roots[0]) << (total - off - w))
     with pytest.raises(th.UnknownSymbolError):
-        pd.decode_indexed_pallas(bits.to_bytes(len(enc), "big"), idx, shuffled)
+        th.decode_indexed(
+            bits.to_bytes(len(enc), "big"), idx, shuffled, impl="interpret"
+        )
 
 
 @pytest.mark.slow
 def test_selfsync_foreign_stream_nonmonotone(shuffled):
     """Foreign (un-indexed) stream from the oracle encoder decodes on the
-    self-sync kernel with the predecessor decoder (tiny segs: interpreter).
+    self-sync lane kernel (tiny segments, Pallas interpreter).
 
     The comparison target is the ORACLE's decode, not the plaintext: for
     this shuffled table the all-ones EOS padding itself completes a 5-bit
@@ -140,10 +121,13 @@ def test_selfsync_foreign_stream_nonmonotone(shuffled):
     enc = oracle.oracle_encode(data, shuffled)
     expected = oracle.oracle_decode(enc, shuffled)
     assert expected[: len(data)] == data  # padding adds at most a suffix
-    assert selfsync.selfsync_decode(enc, shuffled, seg_words=4) == expected
+    assert selfsync.selfsync_decode(
+        enc, shuffled, seg_words=4, impl="interpret"
+    ) == expected
 
 
 def test_sequential_decode_nonmonotone(shuffled):
-    """th.decode (scan path off-TPU) still handles non-monotone tables."""
+    """th.decode (the sequential scan for short streams) handles
+    non-canonical tables."""
     data = b"arbitrary prefix trees, as the reference generator accepts"
     assert th.decode(th.encode(data, shuffled), shuffled) == data

@@ -41,7 +41,7 @@ def test_cli_check(def_file, capsys):
     assert huffgen_main([def_file, "--check"]) == 0
     out = capsys.readouterr().out
     assert "6 codes" in out
-    assert "range-monotone" in out
+    assert "root_bits=" in out
 
 
 def test_cli_tsv_roundtrip(def_file, tmp_path):

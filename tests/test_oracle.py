@@ -1,4 +1,4 @@
-"""Bit-exactness of the TPU path against the C++ oracle (cpp/).
+"""Bit-exactness of the JAX paths against the C++ oracle (cpp/).
 
 The oracle mirrors the reference C semantics exactly (golden vectors from
 reference tests/huffman_test.c:20-37 are asserted inside cpp/tests/ as well);
@@ -47,8 +47,9 @@ def test_decode_matches_oracle(table, otable):
     assert th.decode(encoded, table) == oracle.OracleDecoder(otable).decode(encoded)
 
 
-def test_oracle_roundtrip_of_tpu_stream(table, otable):
-    """TPU-encoded bytes must decode on the C++ (reference-semantics) side."""
+def test_oracle_roundtrip_of_device_stream(table, otable):
+    """Device-encoded bytes must decode on the C++ (reference-semantics)
+    side."""
     data = _random_corpus(seed=13, n=4096)
     encoded, index = th.encode_with_index(data, table)
     assert oracle.OracleDecoder(otable).decode(encoded) == data
@@ -132,7 +133,7 @@ def test_eos_padding_parity(table, otable):
 def test_encoder_carry_parity_every_chunk(table, otable):
     """overflow_bits parity with the C++ oracle after EVERY chunk of the
     step-size sweep (reference behavior: huffman_test.c:117-165) — not just
-    the final bytes (VERDICT r1 item 9)."""
+    the final bytes."""
     data = _random_corpus(seed=29, n=384)
     for step in STEP_SIZES:
         ours = th.HuffmanEncoder(table)

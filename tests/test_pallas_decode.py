@@ -1,16 +1,20 @@
-"""Pallas fast-path decode: correctness (interpret mode on the CPU backend).
+"""Indexed decode through the lane kernel (Pallas interpreter on the CPU).
 
-The kernel itself targets TPU; on the test backend it runs through the
-Pallas interpreter, so keep inputs small. Bit-level behavior must match the
-scan-kernel reference path and the one-shot sequential decoder.
+Every index block is one lane of the lane decode (ops/lanes.py); on the GPU
+the kernel is compiled through Triton, here the interpreter runs the same
+kernel body. Bit-level behavior must match the sequential decoder.
 """
 
 import numpy as np
 import pytest
 
 import tpu_huffman as th
-from tpu_huffman.ops import pallas_decode
+from tpu_huffman.ops import lanes
 from tpu_huffman.tables import CodeSpec, HuffmanTable
+
+
+def _decode(enc, idx, table):
+    return th.decode_indexed(enc, idx, table, impl="interpret")
 
 
 @pytest.fixture(scope="module")
@@ -18,36 +22,16 @@ def table():
     return th.load_static_test_table()
 
 
-def test_static_table_is_range_monotone(table):
-    s = pallas_decode.structure_for(table)
-    assert s is not None
-    assert len(s.intervals) == 6  # lengths 5..10
-    # perm must cover all 256 symbols exactly once
-    assert sorted(s.perm.tolist()) == list(range(256))
-
-
-def test_supports_envelope(table):
-    assert pallas_decode.supports(table, 32)
-    assert pallas_decode.supports(table, 128)
-    assert not pallas_decode.supports(table, 30)  # not a multiple of 4
-    assert not pallas_decode.supports(table, 1024)  # too deep
-
-
 def test_non_monotone_table_on_fast_path():
-    # Codes 00, 01, 11: length-2 codes {0, 1, 3} are not consecutive, so no
-    # range-monotone structure — the predecessor-search decoder (round 2)
-    # handles it on the Pallas fast path (no fallback; the reference
-    # generator accepts arbitrary prefix trees, generator.c:236-278).
+    # Codes 00, 01, 11: length-2 codes {0, 1, 3} are not consecutive; the
+    # LUT decode handles any prefix tree (the reference generator accepts
+    # arbitrary prefix trees, generator.c:236-278).
     t = HuffmanTable.from_specs(
         [CodeSpec(97, 2, 0), CodeSpec(98, 2, 1), CodeSpec(99, 2, 3)], name="gap"
     )
-    assert pallas_decode.structure_for(t) is None
-    assert pallas_decode.supports(t, 32)
-    iv, _aux = pallas_decode.decode_dispatch(t)
-    assert iv is None  # predecessor form selected
     data = b"abcabccba"
     enc, idx = th.encode_with_index(data, t, block_symbols=4)
-    assert pallas_decode.decode_indexed_pallas(enc, idx, t) == data
+    assert _decode(enc, idx, t) == data
     assert th.decode_indexed(enc, idx, t) == data
 
 
@@ -57,8 +41,7 @@ def test_pallas_matches_sequential(table, k, n):
     rng = np.random.default_rng(n * 31 + k)
     data = rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
     enc, idx = th.encode_with_index(data, table, block_symbols=k)
-    assert pallas_decode.supports(table, k)
-    out = pallas_decode.decode_indexed_pallas(enc, idx, table)
+    out = _decode(enc, idx, table)
     assert out == data
     assert out == th.decode(enc, table)
 
@@ -72,33 +55,31 @@ def test_pallas_canonical_custom_table():
             lens[sym] = length
             sym += 1
     t = th.make_canonical(lens, name="c8")
-    assert pallas_decode.supports(t, 8)
     rng = np.random.default_rng(9)
     data = rng.integers(0, sym, size=333, dtype=np.uint8).tobytes()
     enc, idx = th.encode_with_index(data, t, block_symbols=8)
-    assert pallas_decode.decode_indexed_pallas(enc, idx, t) == data
+    assert _decode(enc, idx, t) == data
 
 
-def test_decode_indexed_dispatches_to_pallas(table, monkeypatch):
-    called = {}
-    orig = pallas_decode.decode_indexed_pallas
+def test_decode_indexed_dispatches_to_lanes(table, monkeypatch):
+    seen = {}
+    orig = lanes.decode_lanes
 
-    def spy(data, index, tab):
-        called["yes"] = True
-        return orig(data, index, tab)
+    def spy(*a, **k):
+        seen["impl"] = k["impl"]
+        return orig(*a, **k)
 
-    monkeypatch.setattr(pallas_decode, "decode_indexed_pallas", spy)
+    monkeypatch.setattr(lanes, "decode_lanes", spy)
     data = b"dispatch-check" * 10
     enc, idx = th.encode_with_index(data, table, block_symbols=16)
     assert th.decode_indexed(enc, idx, table) == data
-    assert called.get("yes")
+    assert seen["impl"] == "xla"  # the CPU backend's plain path
 
 
 def test_pallas_32bit_code_table():
-    # MAX_CODE_BITS=32 codes are legal (reference: source/huffman.c:10).
-    # In the multi-symbol pair-fetch consume, a 32-bit code's in-window
-    # shift must select the whole lookahead word instead of `wv << 32`
-    # (undefined in XLA). Kraft-complete: 1x1 + 30 descending + 2x32.
+    # MAX_CODE_BITS=32 codes are legal (reference: source/huffman.c:10):
+    # a 32-bit code reads a whole window and its level-1 subtable is 20
+    # bits wide. Kraft-complete: 1x1 + 30 descending + 2x32.
     lens = {0: 1}
     for i in range(1, 31):
         lens[i] = i + 1
@@ -110,20 +91,18 @@ def test_pallas_32bit_code_table():
     # Bias toward the deep symbols so 32-bit codes are dense.
     data = rng.integers(25, 33, size=257, dtype=np.uint8).tobytes()
     enc, idx = th.encode_with_index(data, t, block_symbols=8)
-    assert pallas_decode.decode_indexed_pallas(enc, idx, t) == data
+    assert _decode(enc, idx, t) == data
     assert th.decode(enc, t) == data
 
 
 @pytest.mark.parametrize("n", [64, 1000, 4096, 4095])
 def test_dual_chain_pairing(table, n):
-    """K<=256 indexes ride the dual-chain kernel (two interleaved halves
-    per lane — the kernel is latency-bound on the inter-symbol chain);
-    output must match the sequential decoder, including odd block counts
-    and partial tails."""
+    """Odd block counts and partial tails: output must match the
+    sequential decoder."""
     rng = np.random.default_rng(n * 7 + 1)
     data = rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
     enc, idx = th.encode_with_index(data, table, block_symbols=16)
-    assert pallas_decode.decode_indexed_pallas(enc, idx, table) == data
+    assert _decode(enc, idx, table) == data
 
 
 def test_dual_chain_deep_table():
@@ -143,7 +122,7 @@ def test_dual_chain_deep_table():
     rng = np.random.default_rng(9)
     data = rng.integers(0, sym, size=3000, dtype=np.uint8).tobytes()
     enc, idx = th.encode_with_index(data, t, block_symbols=16)
-    assert pallas_decode.decode_indexed_pallas(enc, idx, t) == data
+    assert _decode(enc, idx, t) == data
     assert th.decode(enc, t) == data
 
 
@@ -156,4 +135,6 @@ def test_dual_chain_poison_raises(table):
     # and 00000 is an invalid 5-bit prefix in the static table.
     bad[37:53] = bytes(16)
     with pytest.raises(th.UnknownSymbolError):
-        pallas_decode.decode_indexed_pallas(bytes(bad), idx, table)
+        _decode(bytes(bad), idx, table)
+    with pytest.raises(th.UnknownSymbolError):
+        th.decode_indexed(bytes(bad), idx, table)

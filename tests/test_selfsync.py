@@ -1,7 +1,8 @@
 """Self-synchronizing foreign-stream decode (SURVEY.md §7 Plan B).
 
-These run through the Pallas interpreter on the CPU test backend, so sizes
-are kept modest; the TPU-scale validation happens in bench/verify runs.
+Kernel-path tests run the lane kernel under the Pallas interpreter
+(``impl="interpret"``) with tiny segments, so sizes stay modest; the
+full-size run on the GPU is chip_smoke.py.
 """
 
 import numpy as np
@@ -49,20 +50,19 @@ def test_unknown_symbol_raises(table):
 
 
 def test_kernel_path_roundtrip(table):
-    """Hit the Pallas fixpoint path with tiny segments (interpreter-friendly:
-    the production SEG_WORDS=32 kernel is too big to trace in interpret mode,
-    so correctness of the fixpoint machinery is validated at seg_words=4)."""
+    """Hit the segment pipeline with tiny segments (seg_words=4: ~100+
+    segments from a 1.9 KB stream)."""
     rng = np.random.default_rng(3)
     data = rng.integers(0, 256, size=1500, dtype=np.uint8).tobytes()
     enc = th.encode(data, table)  # ~1.9 KB -> ~100+ tiny segments
-    assert selfsync.selfsync_decode(enc, table, seg_words=4) == data
+    assert selfsync.selfsync_decode(enc, table, seg_words=4, impl="interpret") == data
 
 
 def test_kernel_path_text_corpus(table):
     """Compressible (skewed) data synchronizes too."""
     data = (b"the quick brown fox jumps over the lazy dog. " * 40)[:1600]
     enc = th.encode(data, table)
-    assert selfsync.selfsync_decode(enc, table, seg_words=4) == data
+    assert selfsync.selfsync_decode(enc, table, seg_words=4, impl="interpret") == data
 
 
 def test_chunk_resume_mid_stream(table):
@@ -71,38 +71,42 @@ def test_chunk_resume_mid_stream(table):
     data = rng.integers(0, 256, size=1800, dtype=np.uint8).tobytes()
     enc = th.encode(data, table)
     for cut in (701, 1111):
-        out1, end1 = selfsync.selfsync_decode_ex(enc[:cut], table, seg_words=4)
+        out1, end1 = selfsync.selfsync_decode_ex(
+            enc[:cut], table, seg_words=4, impl="interpret"
+        )
         rem = enc[end1 // 8 : cut]
         out2, _ = selfsync.selfsync_decode_ex(
-            rem + enc[cut:], table, seg_words=4, start_bit=end1 % 8
+            rem + enc[cut:], table, seg_words=4, start_bit=end1 % 8,
+            impl="interpret",
         )
         assert out1 + out2 == data, cut
 
 
 def test_streaming_decoder_bulk_path(table, monkeypatch):
     """HuffmanDecoder.decode_chunk rides the device-resident selfsync for
-    big chunks (round 3: the retained stream stays on device; feeds upload
-    only new bytes)."""
+    big chunks (the retained stream stays on device; feeds upload only new
+    bytes)."""
     from tpu_huffman import stream as stream_mod
-    from tpu_huffman.ops import pallas_decode
 
-    monkeypatch.setattr(pallas_decode, "_on_tpu", lambda: True)
     monkeypatch.setattr(stream_mod, "BULK_DECODE_THRESHOLD", 256)
     called = {}
     orig_w = selfsync.selfsync_decode_words
 
-    def spy_w(buf, nbytes, consumed_bit, tab, seg_words=selfsync.SEG_WORDS):
+    def spy_w(buf, nbytes, consumed_bit, tab, seg_words=selfsync.SEG_WORDS,
+              impl=None):
         called["yes"] = True
-        return orig_w(buf, nbytes, consumed_bit, tab, seg_words=4)
+        return orig_w(buf, nbytes, consumed_bit, tab, seg_words=4,
+                      impl="interpret")
 
     monkeypatch.setattr(selfsync, "selfsync_decode_words", spy_w)
     # the one-dispatch fused drain handles bulk calls first; route it
-    # through 4-word segments (interpret-mode cost) and count it too
+    # through 4-word segments and the interpreted kernel, and count it too
     orig_f = selfsync.fused_drain_words
 
     def spy_f(buf, nbytes, consumed_bit, tab, capacity, **kw):
         called["yes"] = True
         kw["seg_words"] = 4
+        kw["impl"] = "interpret"
         return orig_f(buf, nbytes, consumed_bit, tab, capacity, **kw)
 
     monkeypatch.setattr(selfsync, "fused_drain_words", spy_f)
@@ -118,17 +122,13 @@ def test_streaming_decoder_bulk_path(table, monkeypatch):
 
 
 def test_decode_dispatches_to_selfsync(table, monkeypatch):
-    from tpu_huffman.ops import pallas_decode
-
     called = {}
     orig = selfsync.selfsync_decode
 
-    def spy(raw, tab, seg_words=selfsync.SEG_WORDS):
+    def spy(raw, tab, seg_words=selfsync.SEG_WORDS, impl=None):
         called["yes"] = True
-        return orig(raw, tab, seg_words=4)
+        return orig(raw, tab, seg_words=4, impl="interpret")
 
-    # force the TPU dispatch seam while still running interpreted kernels
-    monkeypatch.setattr(pallas_decode, "_on_tpu", lambda: True)
     monkeypatch.setattr(selfsync, "selfsync_decode", spy)
     rng = np.random.default_rng(5)
     data = rng.integers(0, 256, size=4000, dtype=np.uint8).tobytes()
@@ -138,13 +138,13 @@ def test_decode_dispatches_to_selfsync(table, monkeypatch):
 
 
 def test_one_pass_fast_path_engages():
-    """Clean streams resolve via the one-pass + patch stitch (round 3:
-    VERDICT r2 #7) — no fixpoint fallback — and stay bit-exact.
+    """Clean streams resolve via the one-pass + patch stitch — no fixpoint
+    fallback — and stay bit-exact.
 
     Uses a Kraft-complete table: self-sync there is a pure codeword walk
     (no invalid 1-bit steps), fast enough to merge inside the tiny
     128-bit test segments. The incomplete static table syncs in ~100-250
-    bits and is exercised at production segment size on the TPU rig.
+    bits and is exercised at production segment size by chip_smoke.py.
     """
     import tpu_huffman.ops.selfsync as ss
 
@@ -158,7 +158,7 @@ def test_one_pass_fast_path_engages():
     rng = np.random.default_rng(31)
     data = rng.integers(0, sym, size=2200, dtype=np.uint8).tobytes()
     enc = th.encode(data, t)
-    # Round 4: clean streams resolve entirely in the DEVICE stitch — the
+    # Clean streams resolve entirely in the DEVICE stitch — the
     # host merge (_stitch_fast), the repair round (_dense_repair), and the
     # fixpoint (_segments_pipeline) must all stay untouched.
     calls = {"stitch": 0, "repair": 0, "fixpoint": 0}
@@ -174,7 +174,7 @@ def test_one_pass_fast_path_engages():
     ss._dense_repair = spy("repair", origs[1])
     ss._segments_pipeline = spy("fixpoint", origs[2])
     try:
-        out = selfsync.selfsync_decode(enc, t, seg_words=4)
+        out = selfsync.selfsync_decode(enc, t, seg_words=4, impl="interpret")
     finally:
         ss._stitch_fast, ss._dense_repair, ss._segments_pipeline = origs
     assert out == data
@@ -193,9 +193,9 @@ def test_one_pass_repair_round(table):
     rng = np.random.default_rng(33)
     data = rng.integers(0, 256, size=2200, dtype=np.uint8).tobytes()
     enc = th.encode(data, table)
-    assert selfsync.selfsync_decode(enc, table, seg_words=4) == data
+    assert selfsync.selfsync_decode(enc, table, seg_words=4, impl="interpret") == data
     # larger test segments: sync fits, repairs become rare/none
-    assert selfsync.selfsync_decode(enc, table, seg_words=8) == data
+    assert selfsync.selfsync_decode(enc, table, seg_words=8, impl="interpret") == data
 
 
 def test_one_pass_fallback_still_correct(table):
@@ -209,7 +209,7 @@ def test_one_pass_fallback_still_correct(table):
     old = ss._stitch_fast
     ss._stitch_fast = lambda *a, **k: None
     try:
-        out = selfsync.selfsync_decode(enc, table, seg_words=4)
+        out = selfsync.selfsync_decode(enc, table, seg_words=4, impl="interpret")
     finally:
         ss._stitch_fast = old
     assert out == data
@@ -219,29 +219,26 @@ def test_one_pass_text_corpus_and_chunks(table):
     """Skewed data + chunked resume ride the fast path bit-exactly."""
     data = (b"a bird in hand is worth two in the bush. " * 64)[:2048]
     enc = th.encode(data, table)
-    out1, end1 = selfsync.selfsync_decode_ex(enc[:900], table, seg_words=4)
+    out1, end1 = selfsync.selfsync_decode_ex(enc[:900], table, seg_words=4, impl="interpret")
     rem = enc[end1 // 8 : 900]
     out2, _ = selfsync.selfsync_decode_ex(
-        rem + enc[900:], table, seg_words=4, start_bit=end1 % 8
+        rem + enc[900:], table, seg_words=4, start_bit=end1 % 8,
+        impl="interpret",
     )
     assert out1 + out2 == data
 
 
 @pytest.mark.slow
 def test_in_graph_repair_splices_failed_segments(table, monkeypatch):
-    """Round 5: segments that fail to merge within the patch reach are
-    re-decoded and spliced INSIDE the dense program (no classic-path
-    fallback). A 4-symbol patch over 256-bit segments makes failures
-    plentiful; _REPAIR_IN_INTERPRET turns the in-graph repair on for the
-    interpret tier and the happy ("dense") path must still produce the
-    exact stream — which proves the repair validated and spliced,
-    because with failures present all_ok is only true post-repair."""
-    import jax.numpy as jnp
-
+    """Segments that fail to merge within the patch reach are re-decoded
+    and spliced INSIDE the dense program (no classic-path fallback). A
+    4-symbol patch over 256-bit segments makes failures plentiful; the
+    happy ("dense") path must still produce the exact stream — which
+    proves the repair validated and spliced, because with failures present
+    all_ok is only true post-repair."""
     monkeypatch.setattr(selfsync, "PATCH_SYMS", 4)
-    monkeypatch.setattr(selfsync, "_REPAIR_IN_INTERPRET", True)
     rng = np.random.default_rng(33)
     data = rng.integers(0, 256, size=16000, dtype=np.uint8).tobytes()
     enc = th.encode(data, table)
-    out, end = selfsync.selfsync_decode_ex(enc, table, seg_words=8)
+    out, end = selfsync.selfsync_decode_ex(enc, table, seg_words=8, impl="interpret")
     assert out == data

@@ -1,9 +1,9 @@
 """Mesh data-parallel codec: the "fake pod" tier (SURVEY.md §4).
 
 Runs on the conftest-forced 8-virtual-CPU-device backend. The contract:
-MeshCodec output bytes are bit-identical to the single-chip path (and hence
-to the reference), on 1-D and 2-D ('dcn','ici') meshes, at every shard
-split, including ragged tails and empty shards.
+MeshCodec output bytes are bit-identical to the single-device path (and
+hence to the reference), on 1-D and 2-D meshes, at every shard split,
+including ragged tails and empty shards.
 """
 
 import jax
@@ -33,14 +33,10 @@ def test_mesh_encode_bit_identical(table, corpus):
     assert mc.decode(enc, idx) == corpus
 
 
-@pytest.mark.skipif(
-    len(jax.devices()) < 8,
-    reason="needs the 8-device fake pod (CPU tier); the real rig has 1 chip",
-)
-def test_mesh_2d_dcn_ici(table, corpus):
-    """2-D (hosts × chips) mesh: collectives across both axes."""
-    devs = np.asarray(jax.devices()[:8]).reshape(2, 4)
-    mesh = Mesh(devs, ("dcn", "ici"))
+def test_mesh_2d_dcn_ici(table, corpus, eight_devices):
+    """2-D (hosts × devices) mesh: collectives across both axes."""
+    devs = np.asarray(eight_devices).reshape(2, 4)
+    mesh = Mesh(devs, ("process", "local"))
     mc = MeshCodec(table, mesh, block_symbols=512)
     enc, idx = mc.encode(corpus)
     assert enc == th.encode(corpus, table)
@@ -80,16 +76,12 @@ def test_mesh_unknown_symbol(table):
         mc.encode(b"ABC")
 
 
-@pytest.mark.skipif(
-    len(jax.devices()) < 8,
-    reason="needs the 8-device fake pod (CPU tier); the real rig has 1 chip",
-)
-def test_global_offsets_past_2_31_bits(table):
+def test_global_offsets_past_2_31_bits(table, eight_devices):
     """The cross-shard offset math must not wrap at 2^31 bits.
 
-    VERDICT r2 weak #6: the mesh-layer int32 cumsum wrapped silently past
-    ~256 MiB encoded. The fix computes the exclusive prefix in split
-    (hi, lo) int32 halves (shard._global_phase_base). Mock per-shard bit
+    An int32 cumsum of shard bit totals wraps silently past ~256 MiB
+    encoded; the exclusive prefix is computed in split (hi, lo) int32
+    halves (shard._global_phase_base). Mock per-shard bit
     totals summing past 2^31 (no giant buffer needed) and check
     (phase, word_base) against int64 host arithmetic.
     """
@@ -126,7 +118,8 @@ def test_global_offsets_past_2_31_bits(table):
 
 
 def test_block_index_offsets_are_int64(table, corpus):
-    """Absolute block offsets are int64 end-to-end (single-chip and mesh)."""
+    """Absolute block offsets are int64 end-to-end (single-device and
+    mesh)."""
     _, idx1 = th.encode_with_index(corpus, table, block_symbols=512)
     assert idx1.bit_offsets.dtype == np.int64
     mc = MeshCodec(table, default_mesh(), block_symbols=512)
@@ -135,19 +128,40 @@ def test_block_index_offsets_are_int64(table, corpus):
     np.testing.assert_array_equal(idx1.bit_offsets, idx2.bit_offsets)
 
 
-@pytest.mark.skipif(
-    jax.default_backend() != "tpu",
-    reason="dual-chain mesh decode is the compiled-TPU path (interpret-mode "
-    "fake pods run the scan body); run with TPU_HUFFMAN_TEST_TPU=1",
-)
-def test_mesh_dual_chain_decode_tpu(table):
-    """Round 4 (VERDICT r3 #7): the mesh decode stripes index-block PAIRS
-    and drives the dual-chain kernel. Bit-exact on the real-chip mesh,
-    including odd block counts (tail half-chain) and partial tails."""
-    mc = MeshCodec(table, default_mesh())
-    rng = np.random.default_rng(77)
-    for n in (300_000, 1_048_577):
-        data = rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
-        enc, idx = mc.encode(data)
-        assert enc == th.encode(data, table)
-        assert mc.decode(enc, idx) == data
+def test_mesh_decode_passes_dispatch_choice(table, corpus, monkeypatch):
+    """The mesh decode runs the lane decode chosen by ops/dispatch.py (the
+    plain XLA version on the CPU) and an explicit impl overrides it."""
+    from tpu_huffman.ops import dispatch, lanes
+
+    seen = []
+    orig = lanes.decode_lanes
+
+    def spy(*a, **k):
+        seen.append(k["impl"])
+        return orig(*a, **k)
+
+    monkeypatch.setattr(lanes, "decode_lanes", spy)
+    mc = MeshCodec(table, default_mesh(), block_symbols=128)
+    enc, idx = mc.encode(corpus[:5000])
+    with dispatch.observe() as paths:
+        assert mc.decode(enc, idx) == corpus[:5000]
+    assert paths == [("mesh_decode", "xla")]
+    assert mc.decode(enc, idx, impl="interpret") == corpus[:5000]
+    assert seen == ["xla", "interpret"]
+
+
+def test_mesh_decode_rejects_foreign_block_size(table, corpus):
+    mc = MeshCodec(table, default_mesh(), block_symbols=128)
+    enc, idx = th.encode_with_index(corpus[:3000], table, block_symbols=64)
+    with pytest.raises(ValueError):
+        mc.decode(enc, idx)
+
+
+def test_mesh_decode_corrupt_stream_raises(table):
+    data = bytes(range(256)) * 8
+    mc = MeshCodec(table, default_mesh(), block_symbols=64)
+    enc, idx = mc.encode(data)
+    bad = bytearray(enc)
+    bad[100:116] = bytes(16)  # 00000 is no prefix of the static table
+    with pytest.raises(th.UnknownSymbolError):
+        mc.decode(bytes(bad), idx)

@@ -193,14 +193,14 @@ def test_chunked_random_data(table):
     oracle.transitive_chunked(table, data, None, 17)
 
 
-# --- capacity-bounded bulk decode (round 2: SHORT_BUFFER at device speed) ---
+# --- capacity-bounded bulk decode (SHORT_BUFFER at device speed) ---
 
 
 def _route_fused_small(monkeypatch, counter=None):
-    """Route the fused one-dispatch drain (round 5) through seg_words=4:
-    the default 32-word segments pad the grid to 16k lanes, which the
-    interpret-mode CPU tier cannot afford. Returns nothing; the fused
-    path stays live (same code, small segments)."""
+    """Route the fused one-dispatch drain through seg_words=4 and the
+    interpreted lane kernel: small segments keep the interpreter cheap.
+    Returns nothing; the fused path stays live (same code, small
+    segments)."""
     from tpu_huffman.ops import selfsync
 
     origf = selfsync.fused_drain_words
@@ -209,6 +209,7 @@ def _route_fused_small(monkeypatch, counter=None):
         if counter is not None:
             counter["n"] = counter.get("n", 0) + 1
         kw["seg_words"] = 4
+        kw["impl"] = "interpret"
         return origf(buf, nbytes, consumed_bit, tab, capacity, **kw)
 
     monkeypatch.setattr(selfsync, "fused_drain_words", small_fused)
@@ -220,23 +221,23 @@ def test_decode_chunk_capped_bulk_path(monkeypatch):
     big retained streams: the reference's SHORT_BUFFER resume contract
     (huffman.c:257-268, huffman_testing.c:75-173) off the scan kernel.
     (Slow tier: each drain's shrinking remainder crosses a new padded-S
-    bucket, and every bucket's interpret-mode pipeline graph costs ~10 s
-    of compile-cache load on CPU. test_decode_chunk_capped_fast keeps a
-    single-bucket twin in the default gate.)"""
+    bucket, each a separate interpreted pipeline compile.
+    test_decode_chunk_capped_fast keeps a single-bucket twin in the
+    default gate.)"""
     from tpu_huffman import oracle as coracle
     from tpu_huffman import stream as stream_mod
-    from tpu_huffman.ops import pallas_decode, selfsync
+    from tpu_huffman.ops import selfsync
 
     table = th.load_static_test_table()
-    monkeypatch.setattr(pallas_decode, "_on_tpu", lambda: True)
     monkeypatch.setattr(stream_mod, "BULK_DECODE_THRESHOLD", 256)
     orig = selfsync.selfsync_decode_capped_words
     called = {}
 
     def spy(buf, nbytes, consumed_bit, tab, capacity,
-            seg_words=selfsync.SEG_WORDS):
+            seg_words=selfsync.SEG_WORDS, impl=None):
         called["n"] = called.get("n", 0) + 1
-        return orig(buf, nbytes, consumed_bit, tab, capacity, seg_words=4)
+        return orig(buf, nbytes, consumed_bit, tab, capacity, seg_words=4,
+                    impl="interpret")
 
     monkeypatch.setattr(selfsync, "selfsync_decode_capped_words", spy)
     _route_fused_small(monkeypatch, counter=called)
@@ -245,7 +246,7 @@ def test_decode_chunk_capped_bulk_path(monkeypatch):
     enc = th.encode(data, table)
 
     # Drive ours and the C++ oracle through the same capacity protocol and
-    # compare EVERY chunk, not just the concatenation (VERDICT r1 item 9).
+    # compare EVERY chunk, not just the concatenation.
     dec = th.HuffmanDecoder(table)
     odec = coracle.OracleDecoder(coracle.OracleTable(table))
     pending_o = enc
@@ -293,47 +294,22 @@ def test_selfsync_capped_matches_unbounded(monkeypatch):
         assert got == data, cap
 
 
-@pytest.mark.slow
-def test_pack_bulk_matches_scalar_pack():
-    """The MB-chunk Pallas bulk pack (stream._pack_bulk: pipeline pack +
-    carry funnel shift + host EOS pad) must byte-match the single-block
-    kernel path for every carry phase and both pad modes. On TPU the
-    bulk path engages automatically above BULK_ENCODE_THRESHOLD; here we
-    call it directly through the interpreter."""
-    import numpy as np
-
-    from tpu_huffman.stream import HuffmanEncoder
-
-    table = th.load_static_test_table()
-    rng = np.random.default_rng(17)
-    data = rng.integers(0, 256, size=9000, dtype=np.uint8)
-    for carry_len in (0, 1, 7, 13, 31):
-        for pad in (True, False):
-            a = HuffmanEncoder(table)
-            b = HuffmanEncoder(table)
-            carry_pat = int(rng.integers(0, 1 << carry_len)) if carry_len else 0
-            for e in (a, b):
-                e._carry_pattern, e._carry_len = carry_pat, carry_len
-            want = a._pack(data, pad=pad)
-            got = b._pack_bulk(data, pad=pad, min_bytes=None)
-            assert got == want, (carry_len, pad)
-
-
-# --- device-resident retained stream (round 3: VERDICT r2 directive 4) ---
+# --- device-resident retained stream ---
 
 
 def test_device_remainder_misaligned_appends(monkeypatch):
     """Feeding odd-sized chunks exercises every byte phase of the device
     append's funnel merge; output must equal the host decode exactly."""
     from tpu_huffman import stream as stream_mod
-    from tpu_huffman.ops import pallas_decode, selfsync
+    from tpu_huffman.ops import selfsync
 
-    monkeypatch.setattr(pallas_decode, "_on_tpu", lambda: True)
     monkeypatch.setattr(stream_mod, "BULK_DECODE_THRESHOLD", 64)
     orig = selfsync.selfsync_decode_words
 
-    def small(buf, nbytes, consumed_bit, tab, seg_words=selfsync.SEG_WORDS):
-        return orig(buf, nbytes, consumed_bit, tab, seg_words=4)
+    def small(buf, nbytes, consumed_bit, tab, seg_words=selfsync.SEG_WORDS,
+              impl=None):
+        return orig(buf, nbytes, consumed_bit, tab, seg_words=4,
+                    impl="interpret")
 
     monkeypatch.setattr(selfsync, "selfsync_decode_words", small)
     _route_fused_small(monkeypatch)
@@ -361,15 +337,15 @@ def test_device_remainder_capped_drain_and_state(monkeypatch):
     test_decode_chunk_capped_bulk_path; the default gate covers the
     protocol with test_decode_chunk_capped_fast.)"""
     from tpu_huffman import stream as stream_mod
-    from tpu_huffman.ops import pallas_decode, selfsync
+    from tpu_huffman.ops import selfsync
 
-    monkeypatch.setattr(pallas_decode, "_on_tpu", lambda: True)
     monkeypatch.setattr(stream_mod, "BULK_DECODE_THRESHOLD", 64)
     orig = selfsync.selfsync_decode_capped_words
 
     def small(buf, nbytes, consumed_bit, tab, capacity,
-              seg_words=selfsync.SEG_WORDS):
-        return orig(buf, nbytes, consumed_bit, tab, capacity, seg_words=4)
+              seg_words=selfsync.SEG_WORDS, impl=None):
+        return orig(buf, nbytes, consumed_bit, tab, capacity, seg_words=4,
+                    impl="interpret")
 
     monkeypatch.setattr(selfsync, "selfsync_decode_capped_words", small)
     _route_fused_small(monkeypatch)
@@ -430,16 +406,16 @@ def test_decode_chunk_capped_fast(monkeypatch):
     the C++ oracle."""
     from tpu_huffman import oracle as coracle
     from tpu_huffman import stream as stream_mod
-    from tpu_huffman.ops import pallas_decode, selfsync
+    from tpu_huffman.ops import selfsync
 
     table = th.load_static_test_table()
-    monkeypatch.setattr(pallas_decode, "_on_tpu", lambda: True)
     monkeypatch.setattr(stream_mod, "BULK_DECODE_THRESHOLD", 256)
     orig = selfsync.selfsync_decode_capped_words
 
     def small(buf, nbytes, consumed_bit, tab, capacity,
-              seg_words=selfsync.SEG_WORDS):
-        return orig(buf, nbytes, consumed_bit, tab, capacity, seg_words=4)
+              seg_words=selfsync.SEG_WORDS, impl=None):
+        return orig(buf, nbytes, consumed_bit, tab, capacity, seg_words=4,
+                    impl="interpret")
 
     monkeypatch.setattr(selfsync, "selfsync_decode_capped_words", small)
     _route_fused_small(monkeypatch)
@@ -466,46 +442,3 @@ def test_decode_chunk_capped_fast(monkeypatch):
     dec2 = th.HuffmanDecoder(table)
     dec2.load_state(st)
     assert dec2.decode_chunk(b"").data == b""
-
-
-def test_fused_bulk_encode_chunk_protocol(monkeypatch):
-    """The one-dispatch bulk encode (round 5: pack pipeline + device
-    capacity cut + carry funnel in one program) must reproduce the host
-    protocol chunk-for-chunk — same bytes, same consumed counts, same
-    carries across every capacity boundary (reference: huffman.c:88-99
-    overflow save; huffman_testing.c:102-119 growth loop)."""
-    from tpu_huffman import stream as stream_mod
-    from tpu_huffman.stream import HuffmanEncoder
-
-    table = th.load_static_test_table()
-    rng = np.random.default_rng(31)
-    data = rng.integers(0, 256, size=3000, dtype=np.uint8).tobytes()
-    cap = 1300  # 3 capped calls: every interpret-mode bulk call costs ~8 s
-
-    def protocol(enc):
-        chunks = []
-        pending = data
-        while True:
-            r = enc.encode_chunk(pending, cap)
-            chunks.append((r.data, r.consumed, r.done, enc.overflow_bits))
-            pending = pending[r.consumed:]
-            if r.done:
-                break
-        return chunks
-
-    want = protocol(HuffmanEncoder(table))  # legacy host-cut path
-    monkeypatch.setattr(stream_mod, "BULK_ENCODE_THRESHOLD", 512)
-    monkeypatch.setattr(stream_mod, "_FORCE_BULK_ENCODE", True)
-    got = protocol(HuffmanEncoder(table))
-    assert got == want
-    # uncapped call with a pending carry composes identically
-    a, b = HuffmanEncoder(table), HuffmanEncoder(table)
-    for e in (a, b):
-        e._carry_pattern, e._carry_len = 0x15, 5
-    monkeypatch.setattr(stream_mod, "_FORCE_BULK_ENCODE", False)
-    monkeypatch.setattr(stream_mod, "BULK_ENCODE_THRESHOLD", 1 << 30)
-    want_u = a.encode_chunk(data, None)
-    monkeypatch.setattr(stream_mod, "_FORCE_BULK_ENCODE", True)
-    monkeypatch.setattr(stream_mod, "BULK_ENCODE_THRESHOLD", 512)
-    got_u = b.encode_chunk(data, None)
-    assert got_u == want_u

@@ -1,15 +1,17 @@
-"""tpu_huffman: a TPU-native static-Huffman lossless codec.
+"""tpu_huffman: a data-parallel static-Huffman lossless codec in JAX.
 
-Brand-new JAX/XLA/Pallas framework with the capabilities of
-awslabs/aws-c-compression (reference mounted at /root/reference): streaming
-static-Huffman encode/decode with pluggable symbol tables, an offline table
-compiler, a chunked (SHORT_BUFFER-equivalent) resume protocol, and
-data-parallel scaling over TPU meshes. A C++17 host library (cpp/) mirrors
-the reference semantics bit-for-bit as the CPU oracle and baseline.
+A JAX/XLA/Pallas framework with the capabilities of
+awslabs/aws-c-compression: streaming static-Huffman encode/decode with
+pluggable symbol tables, an offline table compiler, a chunked
+(SHORT_BUFFER-equivalent) resume protocol, and data-parallel scaling over
+device meshes; its parallel decode runs a Pallas kernel compiled through
+Triton on NVIDIA GPUs. A C++17 host library (cpp/) mirrors the reference
+semantics bit-for-bit as the CPU oracle and baseline.
 
 Layer map (vs SURVEY.md §1):
   1. library runtime  -> library_init/clean_up + errors (errors.py)
-  2. codec core       -> ops/encode.py, ops/decode.py, stream.py
+  2. codec core       -> ops/encode.py, ops/decode.py, ops/selfsync.py,
+                         ops/lanes.py, stream.py
   3. symbol coder     -> tables.HuffmanTable (tables as data, not codegen)
   4. generator tool   -> tables.py parser/compiler + cpp/tools/huffgen
 """

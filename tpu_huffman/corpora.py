@@ -184,3 +184,34 @@ def canterbury_like(n: int, seed: int = 0) -> bytes:
         gen(per, seed + i) for i, gen in enumerate(CATEGORIES.values())
     ]
     return b"".join(blobs)[:n]
+
+
+def hpack_headers(n: int, seed: int = 7) -> bytes:
+    """Deterministic HTTP-header-like text: the workload of the reference's
+    one downstream consumer (aws-c-http HPACK header compression,
+    reference: builder.json:6-8, README.md:176-183). Field names/values
+    drawn from common headers with varied tokens — the byte distribution
+    (lowercase, digits, '-', '/', ';') is what RFC 7541's code lengths
+    were fit to, so 5-7-bit codes dominate, unlike the uniform-ish
+    synthetic tables."""
+    rng = np.random.default_rng(seed)
+    names = [b"content-type", b":authority", b":path", b"accept-encoding",
+             b"user-agent", b"cache-control", b"x-amz-request-id", b"etag",
+             b"date", b"content-length", b"x-forwarded-for", b"cookie"]
+    words = [b"text/html; charset=utf-8", b"gzip, deflate, br",
+             b"max-age=31536000, immutable", b"www.example.com",
+             b"application/json", b"keep-alive", b"/index.html",
+             b"Mozilla/5.0 (X11; Linux x86_64) AppleWebKit/537.36",
+             b"no-cache", b"session=abc123def456; path=/; httponly"]
+    out = bytearray()
+    while len(out) < n:
+        nm = names[int(rng.integers(len(names)))]
+        if rng.random() < 0.4:
+            val = words[int(rng.integers(len(words)))]
+        else:
+            val = (str(rng.integers(10 ** 9)).encode() if rng.random() < 0.5
+                   else bytes(rng.integers(97, 123, size=int(rng.integers(4, 24)), dtype=np.uint8)))
+        # HPACK huffman-codes bare name/value strings (no line framing;
+        # CR/LF are 30/28-bit codes that never appear in legal values).
+        out += nm + val
+    return bytes(out[:n])

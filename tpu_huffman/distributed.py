@@ -1,29 +1,31 @@
-"""Multi-host bring-up and global-array plumbing for MeshCodec.
+"""Multi-process bring-up and global-array plumbing for MeshCodec.
 
 The reference has no distribution layer at all (single process, SURVEY.md
-§2.2); this module is the framework's NCCL-equivalent seam, built on JAX's
+§2.2); this module is the framework's distribution seam, built on JAX's
 native runtime: `jax.distributed.initialize` for process bring-up, a global
-device mesh spanning all hosts (ICI inside a slice, DCN across), and
-process-local ↔ global array conversion so each host feeds only its shard
-of the byte stream.
+device mesh spanning all processes (XLA hands its collectives to NCCL on
+GPUs), and process-local ↔ global array conversion so each process feeds
+only its shard of the byte stream.
 
-Usage on an N-host pod slice (same program on every host):
+Usage with N processes (same program in every process):
 
     import tpu_huffman as th
     from tpu_huffman import distributed as dist
 
-    dist.initialize()                      # env-driven on Cloud TPU
-    mesh = dist.global_data_mesh()         # 1-D mesh over all chips
+    dist.initialize("host0:1234", num_processes=N, process_id=i)
+    mesh = dist.global_data_mesh()         # 1-D mesh over all devices
     codec = th.MeshCodec(table, mesh)
 
-    encoded, index = dist.encode_global(codec, my_host_bytes)
-    # encoded/index are replicated to every host (small relative to input
-    # when used for storage; for pure compression pipelines keep outputs
-    # device-resident instead).
+    encoded, index = dist.encode_global(codec, my_process_bytes)
+    # encoded/index are replicated to every process (small relative to
+    # input when used for storage; for pure compression pipelines keep
+    # outputs device-resident instead).
 
-Testing without a cluster: tests/test_distributed.py launches two CPU
-processes with 4 virtual devices each (the "fake pod" tier from
-SURVEY.md §4 that the reference lacks).
+One process can also drive every card of a machine: ``th.default_mesh()``
+is the 1-D mesh over the local devices. Testing without a cluster:
+tests/test_distributed.py launches two CPU processes with 4 virtual
+devices each (the "fake pod" tier from SURVEY.md §4 that the reference
+lacks).
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ def initialize(coordinator_address: str | None = None,
                local_device_ids=None) -> None:
     """Bring up the JAX distributed runtime (idempotent).
 
-    With no arguments, relies on the environment (Cloud TPU metadata or
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id; with no arguments JAX reads them from a cluster
+    environment it recognizes, and fails where there is none.
     """
     if jax.process_count() > 1 or getattr(initialize, "_done", False):
         return
@@ -63,13 +66,13 @@ def global_data_mesh(axis: str = "data") -> Mesh:
     return Mesh(np.asarray(jax.devices()), (axis,))
 
 
-def dcn_ici_mesh() -> Mesh:
-    """2-D (hosts × local-chips) mesh: collectives ride DCN on axis 0 and
-    ICI on axis 1 — the layout SURVEY.md §2.2 prescribes."""
+def process_local_mesh() -> Mesh:
+    """2-D (processes × local devices) mesh, process-major: MeshCodec
+    flattens it to one data axis in process order."""
     n_proc = jax.process_count()
     per = jax.local_device_count()
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
-    return Mesh(np.asarray(devs).reshape(n_proc, per), ("dcn", "ici"))
+    return Mesh(np.asarray(devs).reshape(n_proc, per), ("process", "local"))
 
 
 def encode_global(codec, local_data: bytes):

@@ -1,4 +1,4 @@
-"""Error types for the TPU Huffman codec.
+"""Error types for the Huffman codec.
 
 Mirrors the reference library's error surface (reference:
 include/aws/compression/compression.h:17-21 defines

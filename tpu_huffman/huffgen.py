@@ -47,13 +47,9 @@ def main(argv=None) -> int:
 
     n_codes = int((table.lengths > 0).sum())
     if args.check or not (args.tsv or args.npz):
-        from .ops.pallas_decode import structure_for
-
-        rm = structure_for(table)
         print(
             f"ok: {n_codes} codes, lengths {table.min_len}..{table.max_len}, "
-            f"root_bits={table.root_bits}, "
-            f"fast-path={'yes (range-monotone)' if rm else 'no (scan fallback)'}"
+            f"root_bits={table.root_bits}"
         )
     if args.tsv:
         with open(args.tsv, "w") as f:

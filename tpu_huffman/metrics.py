@@ -1,6 +1,6 @@
 """Thin observability: counters + profiler hook (SURVEY.md §5).
 
-The reference has no logging/metrics at all; the TPU build keeps this
+The reference has no logging/metrics at all; this build keeps this
 deliberately thin: a process-local counter set and a context manager around
 ``jax.profiler.trace`` for XLA-level traces.
 """

@@ -11,6 +11,7 @@ run identically with JAX's default x64-disabled config.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -68,3 +69,28 @@ def extract_windows(words: jnp.ndarray, bit_offsets: jnp.ndarray) -> jnp.ndarray
     w1 = words[idx + 1]
     # (w1 >> (32 - sh)) with sh==0 must be 0; split the shift to stay defined.
     return (w0 << sh) | ((w1 >> 1) >> (31 - sh))
+
+
+@jax.jit
+def words_from_u8_dev(u8: jnp.ndarray) -> jnp.ndarray:
+    """Device twin of :func:`words_from_bytes_np`: uint8[4W] -> uint32[W]
+    (bit 0 = MSB of byte 0), a byte swap of the little-endian view."""
+    x = jax.lax.bitcast_convert_type(u8.reshape(-1, 4), jnp.uint32).reshape(-1)
+    return (
+        ((x & jnp.uint32(0xFF)) << 24)
+        | ((x & jnp.uint32(0xFF00)) << 8)
+        | ((x >> 8) & jnp.uint32(0xFF00))
+        | (x >> 24)
+    )
+
+
+def stream_words_dev(raw: bytes) -> jnp.ndarray:
+    """Upload a byte stream as device words with at least two zero words of
+    slack past the data, the word count bucketed (< 12.5% overshoot) so
+    nearby sizes share compiled programs."""
+    nw = -(-len(raw) // 4) + 2
+    step = 1 << max(8, nw.bit_length() - 3)
+    nw = -(-nw // step) * step
+    u8 = np.zeros(4 * nw, np.uint8)
+    u8[: len(raw)] = np.frombuffer(raw, np.uint8)
+    return words_from_u8_dev(jnp.asarray(u8))

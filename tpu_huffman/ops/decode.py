@@ -7,17 +7,16 @@ two ways:
 
 1. **Block-parallel indexed decode** (the fast path): the encoder emits a
    per-block bit-offset index as metadata *outside* the byte stream (stream
-   bytes stay bit-identical to the reference). Decode then runs one
-   ``lax.scan`` where each step advances *every* block by one symbol — the VPU
-   processes thousands of independent blocks per step, the TPU analog of
-   one-thread-per-block GPU Huffman decoders.
+   bytes stay bit-identical to the reference). Every block is one lane of
+   the lane decode (ops/lanes.py): on a GPU a Pallas kernel in which each
+   lane loops over its block's symbols in registers.
 
-2. **Sequential fallback** for foreign streams with no index: the same scan
-   with a single block, reproducing the reference state machine's
-   termination rules exactly (reference: source/huffman.c:240-255):
-   no-match with < 32 bits left => need more input (success);
-   no-match with >= 32 bits => unknown symbol; code longer than remaining
-   bits => trailing padding (success).
+2. **Foreign streams** with no index: the self-synchronizing segment decode
+   (ops/selfsync.py) for all but short streams, and below it a sequential
+   scan that reproduces the reference state machine's termination rules
+   exactly (reference: source/huffman.c:240-255): no-match with < 32 bits
+   left => need more input (success); no-match with >= 32 bits => unknown
+   symbol; code longer than remaining bits => trailing padding (success).
 
 Symbol lookup is two gathers into the flattened LUT (tables.py) instead of
 the reference's generated goto tree — branch-free and vectorizable.
@@ -34,7 +33,8 @@ import numpy as np
 
 from ..errors import UnknownSymbolError
 from ..tables import HuffmanTable
-from .bitpack import extract_windows, words_from_bytes_np
+from . import dispatch, lanes
+from .bitpack import extract_windows, stream_words_dev, words_from_bytes_np
 from .encode import DeviceTable
 
 STATUS_OK = 0
@@ -62,35 +62,6 @@ def lut_lookup(window: jnp.ndarray, dt: DeviceTable, root_bits: int):
     bits_read = jnp.where(is_ptr, b1, b0)
     symbol = jnp.where(is_ptr, v1, v0)
     return symbol, bits_read
-
-
-@functools.partial(jax.jit, static_argnames=("root_bits", "steps"))
-def decode_blocks_kernel(
-    words: jnp.ndarray,  # uint32[W+1] (>=1 zero pad word at the end)
-    bit_offsets: jnp.ndarray,  # int32[B] start bit of each block
-    n_symbols: jnp.ndarray,  # int32[B] symbols to decode per block
-    l0_bits, l0_val, l1_bits, l1_val,
-    root_bits: int,
-    steps: int,
-):
-    """Decode B independent blocks, one symbol per block per scan step.
-
-    Requires a trusted index (offsets + counts); no termination rules are
-    evaluated. Returns (symbols uint8[B, steps], final_bit_offsets int32[B]).
-    """
-    dt = _LutView(l0_bits, l0_val, l1_bits, l1_val)
-
-    def step(off, i):
-        win = extract_windows(words, off)
-        sym, nbits = lut_lookup(win, dt, root_bits)
-        active = i < n_symbols
-        off2 = jnp.where(active, off + nbits, off)
-        return off2, sym.astype(jnp.uint8)
-
-    final_off, syms = jax.lax.scan(
-        step, bit_offsets.astype(jnp.int32), jnp.arange(steps, dtype=jnp.int32)
-    )
-    return syms.T, final_off
 
 
 class _LutView:
@@ -187,11 +158,6 @@ class BlockIndex:
     n_symbols: np.ndarray  # int32[B]: symbol count per block
     total_symbols: int
     total_bits: int  # unpadded bit length of the stream
-    # The stream's actual max code length (0 = unknown): lets the decoder
-    # plan its kernel on the data's envelope (split plan, round 5) — an
-    # understated value is still safe, the kernel's poison flag triggers a
-    # full-structure re-run.
-    max_code_len: int = 0
 
 
 def decode(
@@ -213,8 +179,8 @@ def decode(
 
 
 # One-shot decode feeds larger than this are auto-segmented through the
-# streaming decoder (round 5, VERDICT r4 #7): the self-sync dense
-# assembly's per-slot channels scale with the segment count, so a 1 GiB
+# streaming decoder: the self-sync dense assembly's per-slot channels
+# scale with the segment count, so a 1 GiB
 # view would allocate multi-GB scratch; 64 MiB feeds keep the per-call
 # footprint flat while the decoder's remainder state preserves exact
 # one-shot semantics (padding rules, error positions).
@@ -233,20 +199,16 @@ def _decode_impl(data, table, max_output):
         for i in range(0, len(raw), DECODE_SEGMENT_BYTES):
             parts.append(dec.decode_chunk(raw[i : i + DECODE_SEGMENT_BYTES]).data)
         return b"".join(parts)
-    # Large foreign streams: self-synchronizing parallel decode (Plan B)
-    # when the table qualifies; the scan state machine below is the general
-    # fallback (and the semantics reference for truncated decodes).
-    # TPU only: off-TPU the production-size kernel would go through the
-    # Pallas interpreter, which cannot trace a 212-step unrolled body in
-    # reasonable time (tests cover the fixpoint with tiny seg_words instead).
-    if max_output is None and len(raw) > 2048:
-        from . import pallas_decode, selfsync
+    # Foreign streams past a few KiB: self-synchronizing parallel decode;
+    # the scan state machine below stays for short streams and for
+    # truncated decodes (max_output), whose semantics it defines.
+    if max_output is None and len(raw) > dispatch.SELFSYNC_MIN_BYTES:
+        from . import selfsync
 
-        if pallas_decode._on_tpu() and selfsync.supports(table):
-            # Covers ANY prefix-free table: range-monotone tables decode
-            # via interval arithmetic, the rest via the predecessor-search
-            # window decoder — no CPU fallback.
+        if selfsync.supports(table):
+            dispatch.note("decode", "selfsync")
             return selfsync.selfsync_decode(raw, table)
+    dispatch.note("decode", "sequential")
     words_np, nbytes = words_from_bytes_np(raw)
     words = jnp.concatenate(
         [jnp.asarray(words_np), jnp.zeros(2, dtype=jnp.uint32)]
@@ -278,50 +240,52 @@ def decode_indexed(
     data: bytes | bytearray | np.ndarray,
     index: BlockIndex,
     table: HuffmanTable,
+    impl: str | None = None,
 ) -> bytes:
     """Block-parallel decode using a trusted BlockIndex (the fast path).
 
-    Dispatches to the Pallas lane-tile kernel (ops/pallas_decode.py) when the
-    table is range-monotone and the block size fits its envelope; falls back
-    to the lax.scan LUT kernel otherwise (arbitrary prefix-free tables).
+    Every index block is one lane of the lane decode (ops/lanes.py); the
+    implementation comes from ops/dispatch.py unless ``impl`` names one.
+    Raises UnknownSymbolError when a block meets a window that matches no
+    code (a corrupt stream or index).
     """
-    from . import pallas_decode
-
-    # Off-TPU the kernel runs through the (slow) Pallas interpreter; keep it
-    # only for small cases (correctness coverage) and use the scan path beyond.
-    small_enough = pallas_decode._on_tpu() or (
-        index.total_symbols <= (1 << 14) and index.symbols_per_block <= 32
-    )
-    if small_enough and pallas_decode.supports(table, index.symbols_per_block):
-        return pallas_decode.decode_indexed_pallas(data, index, table)
     raw = bytes(data) if isinstance(data, (bytes, bytearray)) else np.asarray(data, dtype=np.uint8).tobytes()
     if index.total_symbols == 0:
         return b""
-    if index.total_bits >= 1 << 31:
-        # The scan kernel carries absolute int32 bit offsets; past 2^31
-        # bits they would wrap silently. Raise rather than corrupt (the
-        # Pallas path splits offsets into word+phase on host and is good to
-        # 2^36 bits; beyond that, the chunked streaming protocol applies).
+    if index.total_bits >= 1 << 36:
+        # lanes address the stream by int32 word index
         raise ValueError(
-            "indexed scan decode supports streams < 2^31 bits; use a "
-            "Pallas-supported block size or the chunked streaming protocol"
+            "indexed decode supports streams < 2^36 bits; use the chunked "
+            "streaming protocol"
         )
-    words_np, _ = words_from_bytes_np(raw)
-    words = jnp.concatenate([jnp.asarray(words_np), jnp.zeros(2, dtype=jnp.uint32)])
-    dt = DeviceTable.for_table(table)
-    syms, _ = decode_blocks_kernel(
-        words,
-        jnp.asarray(index.bit_offsets.astype(np.int32)),
-        jnp.asarray(index.n_symbols, dtype=jnp.int32),
-        dt.l0_bits, dt.l0_val, dt.l1_bits, dt.l1_val,
-        root_bits=table.root_bits,
-        steps=index.symbols_per_block,
+    impl = impl or dispatch.lane_impl("decode_indexed")
+    K = index.symbols_per_block
+    off = index.bit_offsets.astype(np.int64)
+    B = off.size
+    Bp = max(lanes.TILE, 1 << (B - 1).bit_length())
+    lane_in = np.zeros((3, Bp), np.int32)
+    lane_in[0, :B] = off >> 5
+    lane_in[1, :B] = off & 31
+    lane_in[2, :B] = index.n_symbols
+    syms, bad = _decode_indexed_dev(
+        stream_words_dev(raw), jnp.asarray(lane_in),
+        lt=lanes.LaneTable.for_table(table), steps=K, impl=impl,
     )
-    out = np.asarray(syms).reshape(-1)
+    if bool(bad):
+        raise UnknownSymbolError()
+    out = np.asarray(syms)[:B]
     # All blocks are full except possibly the last => flat slice reassembles.
-    return out[: index.total_symbols].tobytes() if (
-        index.n_symbols[:-1] == index.symbols_per_block
-    ).all() else _ragged_concat(np.asarray(syms), index)
+    if (index.n_symbols[:-1] == K).all():
+        return out.reshape(-1)[: index.total_symbols].tobytes()
+    return _ragged_concat(out, index)
+
+
+@functools.partial(jax.jit, static_argnames=("lt", "steps", "impl"))
+def _decode_indexed_dev(words, lane_in, *, lt, steps, impl):
+    syms, _exits, bad, _o, _b = lanes.decode_lanes(
+        words, lane_in[0], lane_in[1], lane_in[2], lt, steps=steps, impl=impl
+    )
+    return syms, jnp.any(bad != 0)
 
 
 def _ragged_concat(syms: np.ndarray, index: BlockIndex) -> bytes:

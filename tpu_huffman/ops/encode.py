@@ -1,6 +1,6 @@
 """Vectorized Huffman encode.
 
-TPU-native replacement for the reference's serial bit packer
+Data-parallel replacement for the reference's serial bit packer
 (reference: source/huffman.c:59-105 ``encode_write_bit_pattern`` and the
 per-byte loop at source/huffman.c:161-173). Instead of threading one working
 byte through the stream, the kernel:
@@ -158,15 +158,6 @@ def encode(
     return out
 
 
-def _pallas_fast_path(table) -> bool:
-    """Use the Pallas pack kernel (ops/pallas_encode.py) when it supports
-    the table and we're on real TPU hardware (its interpret mode is slower
-    than this XLA kernel everywhere else)."""
-    from . import pallas_encode
-
-    return jax.default_backend() == "tpu" and pallas_encode.supports(table)
-
-
 def _encode_impl(data, table, eos_padding):
     symbols = (
         np.frombuffer(bytes(data), dtype=np.uint8)
@@ -180,22 +171,16 @@ def _encode_impl(data, table, eos_padding):
 
     if n * int(table.max_len) >= _stream._ONE_SHOT_BIT_LIMIT:
         # int32 device bit offsets bound one call at 2^31 output bits.
-        # The split plan's exact envelope often clears the bound anyway;
-        # when it doesn't, HuffmanEncoder auto-segments internally
-        # through the capacity protocol (round 5, VERDICT r4 #7) — the
-        # carry path never inserts mid-stream padding, so the bytes are
-        # identical to a true one-shot (reference is size_t-clean,
-        # source/huffman.c:107-129).
+        # The data's own code-length envelope often clears the bound; when
+        # it doesn't, HuffmanEncoder auto-segments internally through the
+        # capacity protocol — the carry path never inserts mid-stream
+        # padding, so the bytes are identical to a true one-shot
+        # (reference is size_t-clean, source/huffman.c:107-129).
         eff = int(table.lengths[symbols].max()) if n else 0
         if n * max(eff, 1) >= _stream._ONE_SHOT_BIT_LIMIT:
             return _stream.HuffmanEncoder(table, eos_padding).encode_chunk(
                 symbols, None
             ).data
-    if _pallas_fast_path(table):
-        from . import pallas_encode
-
-        out, _total = pallas_encode.encode(symbols, table, eos_padding)
-        return out
     bucket = _bucket_size(n)
     padded = np.zeros(bucket, dtype=np.uint8)
     padded[:n] = symbols
@@ -267,28 +252,27 @@ def encode_block_kernel_indexed(
     return words, total_bits, padded_bits, bad_flag, bad_idx, block_offsets
 
 
+# Symbols per index block: one lane of the lane decode (ops/lanes.py) per
+# block. Each block costs 12 bytes of index; 512 measured fastest end to
+# end at 128 MiB on the H100 (PERF.md "Kernel choices").
+DEFAULT_BLOCK_SYMBOLS = 512
+
+
 def encode_with_index(
     data: bytes | bytearray | np.ndarray,
     table: HuffmanTable,
     eos_padding: int = DEFAULT_EOS_PADDING,
-    block_symbols: int | None = None,
+    block_symbols: int = DEFAULT_BLOCK_SYMBOLS,
 ):
     """Encode and return (bytes, BlockIndex) for block-parallel decode.
 
     The bytes are identical to :func:`encode`; the index is side metadata
     (SURVEY.md §7 "Plan A": stream stays bit-identical to the reference).
-    block_symbols=None picks the table's measured-best granularity
-    (pallas_encode.index_granularity).
+    One call is bounded at 2^31 encoded bits (int32 device offsets).
     """
+    from .. import stream as _stream
     from .decode import BlockIndex  # local import to avoid a cycle
 
-    if block_symbols is None:
-        if _pallas_fast_path(table):
-            from . import pallas_encode
-
-            block_symbols = pallas_encode.index_granularity(table)
-        else:
-            block_symbols = 192
     symbols = (
         np.frombuffer(bytes(data), dtype=np.uint8)
         if isinstance(data, (bytes, bytearray))
@@ -297,31 +281,13 @@ def encode_with_index(
     n = symbols.size
     if n == 0:
         return b"", BlockIndex(block_symbols, np.zeros(0, np.int64), np.zeros(0, np.int32), 0, 0)
-    if _pallas_fast_path(table):
-        from . import pallas_encode
-
-        k = pallas_encode.offset_granularity(table)
-    else:
-        k = 0
     eff = int(table.lengths[symbols].max())
-    if k and block_symbols % k == 0:
-        from . import pallas_encode
-
-        out, total_bits, offsets = pallas_encode.encode_with_offsets(
-            symbols, table, eos_padding, every=block_symbols
+    if n * max(eff, 1) >= _stream._ONE_SHOT_BIT_LIMIT:
+        raise ValueError(
+            f"input of {n} symbols may exceed 2^31 encoded bits "
+            f"(max code length {eff}); feed it through "
+            "HuffmanEncoder.encode_chunk in smaller pieces"
         )
-        n_blocks = -(-n // block_symbols)
-        n_syms = np.full(n_blocks, block_symbols, dtype=np.int32)
-        n_syms[-1] = n - (n_blocks - 1) * block_symbols
-        index = BlockIndex(
-            symbols_per_block=block_symbols,
-            bit_offsets=offsets.astype(np.int64),
-            n_symbols=n_syms,
-            total_symbols=n,
-            total_bits=total_bits,
-            max_code_len=eff,
-        )
-        return out, index
     bucket = max(_bucket_size(n), block_symbols)
     bucket = ((bucket + block_symbols - 1) // block_symbols) * block_symbols
     padded = np.zeros(bucket, dtype=np.uint8)
@@ -351,80 +317,9 @@ def encode_with_index(
         n_symbols=n_syms,
         total_symbols=n,
         total_bits=int(total_bits),
-        max_code_len=eff,
     )
     nbytes = int(padded_bits) // 8
     return bytes_from_words_np(np.asarray(words), nbytes), index
-
-
-def best_encode_step(table: HuffmanTable, n: int, block_symbols: int = 192,
-                     sample=None):
-    """Fastest available device encode for fixed-size inputs (bench seam).
-
-    Returns ``(encode_fn, finalize_fn)``:
-      encode_fn(symbols_dev_u8[n]) -> (words u32[>=ceil(bits/32)],
-                                       total_bits, padded_bits) — jit-safe.
-      finalize_fn(symbols_dev)     -> same triple, checking the
-                                      unknown-symbol / overflow flags
-                                      (used for post-timing verification).
-
-    Prefers the Pallas pack kernel (ops/pallas_encode.py) when the table
-    supports it; falls back to the XLA gather+cumsum+scatter kernel.
-    ``sample`` (representative bytes) shrinks the per-block buffers to the
-    data's real span envelope (pallas_encode.plan_wb_encode); the overflow
-    flag in finalize_fn guards correctness.
-    """
-    from . import pallas_encode
-
-    if pallas_encode.supports(table):
-        wb_hint = dmin_hint = out_hint = maxlen_cap = None
-        K = None
-        if sample is not None:
-            sample_arr = (
-                np.frombuffer(bytes(sample), dtype=np.uint8)
-                if isinstance(sample, (bytes, bytearray))
-                else np.asarray(sample, dtype=np.uint8)
-            )
-            # Split plan (round 5): cap the kernel at the sample's max
-            # code length — real HPACK header text never touches the RFC
-            # 7541 table's 30-bit codes, and the cap restores the whole
-            # shallow-table kernel (fused16 LUT, 1-word pair fusion).
-            # finalize_fn resolves a cap miss post-timing.
-            if sample_arr.size:
-                eff = int(table.lengths[sample_arr].max())
-                if 0 < eff < int(table.max_len):
-                    maxlen_cap = eff
-            # With a sample, prefer the larger fast-K plan when its
-            # span-adaptive buffers stay in the compile-safe envelope
-            # (the worst-case buffer at fast K may not compile; the
-            # hinted one does, and finalize_fn flags hint overflows).
-            kf = pallas_encode.pack_k_fast(table, maxlen_cap)
-            if kf != pallas_encode.pack_k(table, maxlen_cap):
-                wb_f = pallas_encode.plan_wb_encode(table, sample, K=kf)
-                if wb_f <= 512:
-                    K = kf
-            K = K or pallas_encode.pack_k(table, maxlen_cap)
-            wb_hint = pallas_encode.plan_wb_encode(table, sample, K=K)
-            dmin_hint = pallas_encode.plan_dmin_encode(table, sample, K=K)
-            out_hint = pallas_encode.plan_out_encode(table, sample, n)
-        return pallas_encode.encode_step(
-            table, n, block_symbols, K=K, wb_hint=wb_hint,
-            dmin_hint=dmin_hint, out_bits_hint=out_hint,
-            maxlen_cap=maxlen_cap,
-        )
-
-    dt = DeviceTable.for_table(table)
-    num_words = n + 2
-
-    def encode_fn(symbols):
-        words, total_bits, padded_bits, _bad, _bi = encode_block_kernel(
-            symbols, jnp.int32(n), dt.patterns, dt.lengths,
-            jnp.uint32(DEFAULT_EOS_PADDING), jnp.int32(0),
-            num_out_words=num_words,
-        )
-        return words, total_bits, padded_bits
-
-    return encode_fn, encode_fn
 
 
 def get_encoded_length(

@@ -1,7 +1,7 @@
 """ctypes bindings to the C++ host codec (cpp/), the bit-exact oracle.
 
 The C++ library mirrors the reference semantics exactly (see
-cpp/include/tpuhuff/tpuhuff.hpp); tests compare every TPU kernel against it,
+cpp/include/tpuhuff/tpuhuff.hpp); tests compare every device path against it,
 and the benchmark uses it as the CPU baseline — the role the C reference
 plays in BASELINE.md.
 

@@ -1,10 +1,10 @@
 """Data-parallel codec over a JAX device mesh.
 
 The reference is single-process and strictly sequential; its only scaling
-axis is streaming in time (SURVEY.md §2.2). This module adds the scaling
-axis the TPU build needs: **block data parallelism** over a
-`jax.sharding.Mesh`, with XLA collectives on ICI/DCN doing the global
-coordination the reference never had:
+axis is streaming in time (SURVEY.md §2.2). This module adds a scaling
+axis: **block data parallelism** over a `jax.sharding.Mesh`, with XLA
+collectives (NCCL on GPUs) doing the global coordination the reference
+never had:
 
   encode:  each device packs its contiguous symbol shard locally;
            the global bit offset of every shard is an `all_gather` of the
@@ -14,12 +14,13 @@ coordination the reference never had:
            single-chip / reference encoding of the whole buffer.
   decode:  blocks from a BlockIndex are striped contiguously across
            devices; each device receives only the word-range its blocks
-           touch (no replicated input), runs the LUT scan kernel, and the
-           outputs concatenate in order (fixed symbols per block).
+           touch (no replicated input), runs the lane decode
+           (ops/lanes.py), and the outputs concatenate in order (fixed
+           symbols per block).
 
-Mesh shape is caller-chosen; a 2-D ('dcn', 'ici') mesh flattens to one
-data axis here because block DP is the honest mapping for a codec
-(SURVEY.md §2.2) — the collectives ride ICI within a host and DCN across.
+The mesh is 1-D ``("data",)`` by default; a multi-axis mesh flattens to
+one data axis here because block DP is the honest mapping for a codec
+(SURVEY.md §2.2).
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .errors import UnknownSymbolError
 from .ops.bitpack import bytes_from_words_np, words_from_bytes_np
-from .ops.decode import BlockIndex, decode_blocks_kernel, lut_lookup, _LutView
-from .ops.encode import DEFAULT_EOS_PADDING, DeviceTable
+from .ops import dispatch, lanes
+from .ops.decode import BlockIndex
+from .ops.encode import DEFAULT_BLOCK_SYMBOLS, DEFAULT_EOS_PADDING, DeviceTable
 from .tables import HuffmanTable
 
 
@@ -64,8 +66,8 @@ def _flat_axes(mesh: Mesh) -> tuple[str, ...]:
 def _global_phase_base(local_bits, axes):
     """(phase, word_base) of this shard's exclusive global bit offset.
 
-    TPU jit has no int64 and an int32 cumsum of shard bit totals silently
-    wraps past 2^31 bits (~256 MiB encoded). Each total is split into
+    Device code runs without int64 (x64 off) and an int32 cumsum of shard
+    bit totals silently wraps past 2^31 bits (~256 MiB encoded). Each total is split into
     (hi = bits >> 16, lo = bits & 0xFFFF) int32 halves and the halves are
     cumsummed independently; offset = csum_hi * 2^16 + csum_lo exactly, so
       phase     = offset & 31  = csum_lo & 31          (2^16 ≡ 0 mod 32)
@@ -142,81 +144,15 @@ def _shard_encode_body(symbols, n_valid, patterns, lengths, axes,
     return outs
 
 
-def _shard_encode_body_pallas(symbols, n_valid, *, K, G, Wb, num_out_words,
-                              p32t, lent, min_len, max_len, interpret, axes,
-                              offs_every: int = 0, gather_dmin: int = 0):
-    """Per-shard Pallas pack + funnel to the global phase; under shard_map.
-
-    Same contract as _shard_encode_body but the local pack is the
-    single-chip Pallas pipeline (ops/pallas_encode.py) instead of the
-    elementwise gather+cumsum+scatter kernel — the mesh layer is just the
-    one all_gather of shard bit totals plus an elementwise funnel shift.
-
-    ``offs_every`` > 0 additionally returns the GLOBAL bit offset of every
-    ``offs_every``-th symbol of this shard (must be a multiple of the pack
-    pipeline's sub-block granularity) — the BlockIndex comes free from the
-    pipeline's own prefix sums instead of a host O(N) cumsum
-    (VERDICT r1 item 5).
-    """
-    from .ops.pallas_encode import (
-        LANES as PACK_LANES,
-        _encode_pipeline,
-        _sub_block,
-    )
-
-    n = symbols.shape[0]
-    nv = n_valid[0]
-    B = G * PACK_LANES
-    nsym = jnp.clip(
-        nv - jax.lax.broadcasted_iota(jnp.int32, (B,), 0) * K, 0, K
-    ).astype(jnp.int32)
-    padded = jnp.pad(symbols, (0, B * K - n))
-    syms_u32 = jax.lax.bitcast_convert_type(
-        padded.reshape(-1, 4), jnp.uint32
-    ).reshape(-1)
-    # eos_padding=0: shard streams must NOT pad (only the global stream
-    # end gets eos bits, applied by the caller); a zero pad ORs nothing.
-    # Static Wb (no span hint) -> the overflow flag can never fire here.
-    # gather_dmin (round 5): the gather stitch tail at its STATIC floor —
-    # the shard's content-block count is data-dependent (nb_t), so nb is
-    # the static bound and the pipeline masks the empty tail blocks.
-    words0, local_bits, _padded_bits, bad, _ovf, offs_sub = _encode_pipeline(
-        syms_u32, nsym, jnp.uint32(0), K, G, Wb, num_out_words,
-        p32t, lent, min_len, max_len, interpret,
-        gather_dmin=gather_dmin, nb=-(-n // K),
-        nb_t=(nv + K - 1) // K if gather_dmin else None,
-    )
-
-    # Funnel the phase-0 local stream to its global intra-word phase.
-    phase_i, word_base = _global_phase_base(local_bits, axes)
-    phase = phase_i.astype(jnp.uint32)
-    ext = jnp.concatenate([words0, jnp.zeros(1, jnp.uint32)])
-    prev = jnp.concatenate([jnp.zeros(1, jnp.uint32), words0])
-    words = (ext >> phase) | ((prev << (jnp.uint32(31) - phase)) << jnp.uint32(1))
-    outs = (
-        words,
-        local_bits[None],
-        word_base[None],
-        bad.astype(jnp.int32)[None],
-    )
-    if offs_every:
-        S = _sub_block(K, min_len, max_len)
-        assert offs_every % S == 0
-        offs_blk = offs_sub[:: offs_every // S][: n // offs_every]
-        outs = outs + (offs_blk,)
-    return outs
-
-
 @functools.partial(jax.jit, static_argnames=("num_out_words",))
 def _stitch_kernel(words, word_bases, num_out_words: int):
     """OR every shard's word window into the global stream.
 
     Bits are disjoint across shards (each owns a bit range; the slack words
     past a shard's last bit are zero), so only the boundary word of each
-    window genuinely ORs. One read-OR-write dynamic window per shard:
-    the old elementwise scatter-add cost ~8 ns per scattered WORD (~20 ms
-    for an 8 MiB stream — round 5, prof_r5_mesh_encode.py), while the
-    window form is plain slice traffic. The +w over-allocation keeps
+    window genuinely ORs. One read-OR-write dynamic window per shard is
+    plain slice traffic, where an elementwise scatter would touch every
+    word through an index. The +w over-allocation keeps
     dynamic_slice from clamp-shifting the last shard's window; bits past
     num_out_words are slack zeros and are trimmed on return.
     """
@@ -239,86 +175,34 @@ class MeshCodec:
 
     table: HuffmanTable
     mesh: Mesh
-    block_symbols: int = 256  # BlockIndex granularity for decode striping
+    block_symbols: int = DEFAULT_BLOCK_SYMBOLS  # index granularity
     eos_padding: int = DEFAULT_EOS_PADDING  # reference: huffman.h:66
 
     def __post_init__(self):
-        from .ops import pallas_encode as _pe
-
         self._dt = DeviceTable.for_table(self.table)
+        self._lt = lanes.LaneTable.for_table(self.table)
         self._ndev = math.prod(self.mesh.devices.shape)
-        # The Pallas shard bodies are TPU-only: in interpret mode (CPU
-        # tests, driver dryrun) the kernel expands into the XLA graph and
-        # the CPU backend's algebraic simplifier spins on it ("circular
-        # simplification loop"); the gather/scan bodies stay the CPU path.
-        self._pallas_encode_ok = (
-            _pe.supports(self.table) and not _pe._use_interpret()
-        )
-        # Can the BlockIndex ride the encode pipeline's free offsets?
-        # (Pallas path: block_symbols must align with the pack sub-blocks;
-        # the XLA body samples its own cumsum, any granularity works.)
-        self._offsets_ok = (
-            not self._pallas_encode_ok
-            or self.block_symbols % _pe.offset_granularity(self.table) == 0
-        )
-        self._penc_cache = {}
-        self._pdec_cache = {}
-        axes = _flat_axes(self.mesh)
-        spec_in = P(axes[0] if len(axes) == 1 else axes)
-        self._decode_sharded = jax.jit(
-            jax.shard_map(
-                functools.partial(
-                    _shard_decode_body,
-                    l0_bits=self._dt.l0_bits,
-                    l0_val=self._dt.l0_val,
-                    l1_bits=self._dt.l1_bits,
-                    l1_val=self._dt.l1_val,
-                    root_bits=self.table.root_bits,
-                    steps=self.block_symbols,
-                ),
-                mesh=self.mesh,
-                in_specs=(spec_in, spec_in, spec_in),
-                out_specs=spec_in,
-                check_vma=False,
-            )
-        )
+        self._enc_cache = {}
+        self._dec_cache = {}
 
     # ---- encode ----
 
     def _encode_sharded_fn(self, per_dev: int, with_offsets: bool):
-        """shard_map'd per-shard encode for a fixed shard size.
-
-        Pallas pack pipeline on TPU, XLA gather+cumsum+scatter elsewhere;
-        with_offsets adds a 6th output: global bit offsets of every
-        block_symbols-th symbol, device-computed (no host cumsum).
-        """
+        """shard_map'd per-shard XLA encode for a fixed shard size;
+        with_offsets adds a 5th output: the shard-local bit offsets of
+        every block_symbols-th symbol (device-computed, no host cumsum)."""
         key = (per_dev, with_offsets)
-        if key in self._penc_cache:
-            return self._penc_cache[key]
-        from .ops import pallas_encode as pe
-
+        if key in self._enc_cache:
+            return self._enc_cache[key]
         axes = _flat_axes(self.mesh)
         spec = P(axes[0] if len(axes) == 1 else axes)
-        offs_every = self.block_symbols if with_offsets else 0
-        if self._pallas_encode_ok:
-            K = pe.pack_k(self.table)
-            p32t, lent, mn, mx, Wb, G, now = pe._plan(self.table, per_dev, K)
-            gdmin, _jm = pe.gather_tail_plan(K, mn, mx, Wb, None)
-            body = functools.partial(
-                _shard_encode_body_pallas,
-                K=K, G=G, Wb=Wb, num_out_words=now,
-                p32t=p32t, lent=lent, min_len=mn, max_len=mx,
-                interpret=pe._use_interpret(), axes=axes,
-                offs_every=offs_every, gather_dmin=gdmin,
-            )
-        else:
-            body = functools.partial(
-                _shard_encode_body,
-                patterns=self._dt.patterns,
-                lengths=self._dt.lengths,
-                axes=axes,
-                offs_every=offs_every,
-            )
+        body = functools.partial(
+            _shard_encode_body,
+            patterns=self._dt.patterns,
+            lengths=self._dt.lengths,
+            axes=axes,
+            offs_every=self.block_symbols if with_offsets else 0,
+        )
         nouts = 5 if with_offsets else 4
         fn = jax.jit(
             jax.shard_map(
@@ -326,7 +210,7 @@ class MeshCodec:
                 out_specs=(spec,) * nouts, check_vma=False,
             )
         )
-        self._penc_cache[key] = fn
+        self._enc_cache[key] = fn
         return fn
 
     def encode(self, data: bytes | np.ndarray, with_index: bool = True):
@@ -348,8 +232,7 @@ class MeshCodec:
         ndev = self._ndev
         # Shard size: multiple of block_symbols so decode striping aligns,
         # bucketed to a power of two so nearby input sizes reuse one
-        # compiled shard program (round 4: the per-size retrace showed up
-        # as a recompile on every odd length).
+        # compiled shard program.
         per_dev = -(-n // ndev)
         per_dev = _bucket_pow2(per_dev, self.block_symbols)
         total_padded = per_dev * ndev
@@ -361,15 +244,14 @@ class MeshCodec:
 
         # Wrap guards (the device offset math is exact to 2^36 bits; local
         # per-shard cumsums are int32): raise instead of wrapping, matching
-        # the single-chip _plan guard (ops/pallas_encode.py).
+        # the single-device encode_with_index guard.
         if per_dev * int(self.table.max_len) >= 1 << 31:
             raise ValueError(
                 "per-device shard would exceed 2^31 bits encoded; use more "
                 "devices or the chunked streaming protocol"
             )
 
-        use_offs = with_index and self._offsets_ok
-        outs = self._encode_sharded_fn(per_dev, use_offs)(
+        outs = self._encode_sharded_fn(per_dev, with_index)(
             jnp.asarray(padded), jnp.asarray(n_valid)
         )
         words, local_bits, word_bases, bad = outs[:4]
@@ -403,20 +285,11 @@ class MeshCodec:
             return bytes(out), None
 
         n_blocks = -(-n // self.block_symbols)
-        if use_offs:
-            # Block offsets straight from the encode pipeline's own prefix
-            # sums (free side output, LOCAL to each shard) plus the shard's
-            # int64 global base — host work O(blocks), not O(N), and the
-            # absolute offsets never wrap (they are int64 end-to-end).
-            local_offs = np.asarray(outs[4]).astype(np.int64).reshape(ndev, -1)
-            offsets = (local_offs + bases64[:, None]).reshape(-1)[:n_blocks]
-        else:
-            # Fallback (misaligned block_symbols): host cumsum over lengths.
-            lens64 = self.table.lengths[symbols].astype(np.int64)
-            ends = np.cumsum(lens64)
-            starts_idx = np.arange(n_blocks) * self.block_symbols
-            offsets = np.zeros(n_blocks, dtype=np.int64)
-            offsets[1:] = ends[starts_idx[1:] - 1]
+        # Block offsets straight from the shard encode's own prefix sums
+        # (LOCAL to each shard) plus the shard's int64 global base — host
+        # work O(blocks), and the absolute offsets never wrap.
+        local_offs = np.asarray(outs[4]).astype(np.int64).reshape(ndev, -1)
+        offsets = (local_offs + bases64[:, None]).reshape(-1)[:n_blocks]
         n_sym = np.full(n_blocks, self.block_symbols, dtype=np.int32)
         n_sym[-1] = n - (n_blocks - 1) * self.block_symbols
         index = BlockIndex(
@@ -425,7 +298,6 @@ class MeshCodec:
             n_symbols=n_sym,
             total_symbols=n,
             total_bits=total_bits,
-            max_code_len=int(self.table.lengths[symbols].max()) if n else 0,
         )
         return bytes(out), index
 
@@ -449,7 +321,7 @@ class MeshCodec:
         n_symbols == 0).
 
         Requires ``self.mesh`` to enumerate devices in process order
-        (e.g. distributed.global_data_mesh / dcn_ici_mesh).
+        (e.g. distributed.global_data_mesh / process_local_mesh).
         """
         local = (
             np.frombuffer(bytes(local_data), dtype=np.uint8)
@@ -485,22 +357,12 @@ class MeshCodec:
         )
         nv = jax.make_array_from_process_local_data(sh1, nv_local, (ndev,))
 
-        if with_index and not self._offsets_ok:
-            from .ops import pallas_encode as pe
-
-            raise ValueError(
-                "encode_sharded needs block_symbols aligned to the pack "
-                f"pipeline's offset granularity "
-                f"({pe.offset_granularity(self.table)}) so the index can "
-                "come from device-side prefix sums (no host O(N) work)"
-            )
         if per_dev * int(self.table.max_len) >= 1 << 31:
             raise ValueError(
                 "per-device shard would exceed 2^31 bits encoded; use more "
                 "devices or the chunked streaming protocol"
             )
-        use_offs = with_index
-        outs = self._encode_sharded_fn(per_dev, use_offs)(arr, nv)
+        outs = self._encode_sharded_fn(per_dev, with_index)(arr, nv)
         words, local_bits, _word_bases, bad = outs[:4]
 
         def gather(garr) -> np.ndarray:
@@ -556,8 +418,7 @@ class MeshCodec:
             return bytes(out), None
 
         # Index over the padded global positions: per-device block counts
-        # from the gathered lengths; offsets from the pipeline (or the
-        # device-side cumsum fallback at foreign granularities).
+        # from the gathered lengths; offsets from the shard encode.
         blocks_per_dev = per_dev // bs
         n_blocks = ndev * blocks_per_dev
         counts_dev = np.clip(
@@ -571,7 +432,7 @@ class MeshCodec:
             0,
             bs,
         ).astype(np.int32).reshape(-1)
-        # Local pipeline offsets + each shard's int64 global base: absolute
+        # Local shard offsets + each shard's int64 global base: absolute
         # block offsets are int64 end-to-end and never wrap.
         local_offs = gather(outs[4]).astype(np.int64).reshape(ndev, -1)
         offsets = (local_offs + offsets_dev[:, None]).reshape(-1)[:n_blocks]
@@ -586,132 +447,63 @@ class MeshCodec:
 
     # ---- decode ----
 
-    def _pallas_decode_sharded(self, Kh: int, Wb: int, Wbh: int, G: int):
-        key = (Kh, Wb, Wbh, G)
-        if key in self._pdec_cache:
-            return self._pdec_cache[key]
-        from .ops import pallas_decode as pd
-
-        intervals, aux = pd.decode_dispatch(self.table)
+    def _decode_sharded_fn(self, impl: str):
+        if impl in self._dec_cache:
+            return self._dec_cache[impl]
         axes = _flat_axes(self.mesh)
         spec = P(axes[0] if len(axes) == 1 else axes)
-        body = functools.partial(
-            _shard_decode_body_pallas_dual,
-            Kh=Kh, Wb=Wb, Wbh=Wbh, G=G,
-            intervals=intervals,
-            p32_flat=aux,
-            interpret=pd._use_interpret(),
-        )
         fn = jax.jit(
             jax.shard_map(
-                body, mesh=self.mesh, in_specs=(spec,) * 5,
-                out_specs=(spec, spec), check_vma=False,
+                functools.partial(
+                    _shard_decode_body, lt=self._lt,
+                    steps=self.block_symbols, impl=impl,
+                ),
+                mesh=self.mesh,
+                in_specs=(spec, spec),
+                out_specs=(spec, spec),
+                check_vma=False,
             )
         )
-        self._pdec_cache[key] = fn
+        self._dec_cache[impl] = fn
         return fn
 
-    def _decode_pallas(self, words_np: np.ndarray, index: BlockIndex) -> bytes:
-        """Stripe index-block PAIRS over shards; each shard runs the
-        dual-chain Pallas pipeline (round 4, VERDICT r3 #7: the mesh path
-        previously drove the single-chain kernel — each lane now decodes
-        two interleaved Kh-symbol half-chains, the round-3 latency-bound
-        kernel win, reusing the same pairing plan as bench.py)."""
-        from .ops import pallas_decode as pd
+    def decode(self, data: bytes | np.ndarray, index: BlockIndex,
+               impl: str | None = None) -> bytes:
+        """Block-parallel decode striped over the mesh.
 
-        ndev = self._ndev
-        Kh = index.symbols_per_block
-        off64 = index.bit_offsets.astype(np.int64)
-        baseg, relg, relmg, nsymg, nb, Wb, Wbh, _Gg = pd.pair_dual_inputs(
-            off64, index.n_symbols, index.total_bits, self.table, Kh
-        )
-        lpd = -(-nb // ndev)  # lanes (pairs) per device
-        G = max(1, -(-lpd // pd.LANES))
-        Bp = G * pd.LANES
-        NR = pd._rows_for(Wb)
-
-        lane_first = np.minimum(np.arange(ndev) * lpd, nb - 1)
-        word_base = baseg[lane_first].astype(np.int64)
-        lane_last = np.minimum((np.arange(ndev) + 1) * lpd, nb) - 1
-        rel_last = baseg[lane_last].astype(np.int64) - word_base
-        wmax = int(rel_last.max()) + NR * pd.STAGE_RW + pd.STAGE_RW
-        win = np.zeros((ndev, wmax), dtype=np.uint32)
-        for s in range(ndev):
-            lo = int(word_base[s])
-            hi = min(lo + wmax, words_np.size)
-            win[s, : hi - lo] = words_np[lo:hi]
-
-        base = np.zeros((ndev, Bp), np.int32)
-        rel = np.zeros((ndev, Bp), np.int32)
-        relm = np.zeros((ndev, Bp), np.int32)
-        nsym = np.zeros((ndev, Bp), np.int32)
-        l_idx = np.arange(nb)
-        s_of_l = np.minimum(l_idx // lpd, ndev - 1)
-        flatpos = s_of_l * Bp + (l_idx - s_of_l * lpd)
-        # rel/relm are word-relative to the pair's own base, so only base
-        # needs the shard-frame shift.
-        base.reshape(-1)[flatpos] = (
-            baseg[:nb].astype(np.int64) - word_base[s_of_l]
-        ).astype(np.int32)
-        rel.reshape(-1)[flatpos] = relg[:nb]
-        relm.reshape(-1)[flatpos] = relmg[:nb]
-        nsym.reshape(-1)[flatpos] = nsymg[:nb]
-
-        out, bad = self._pallas_decode_sharded(Kh, Wb, Wbh, G)(
-            jnp.asarray(win).reshape(-1),
-            jnp.asarray(base).reshape(-1),
-            jnp.asarray(rel).reshape(-1),
-            jnp.asarray(relm).reshape(-1),
-            jnp.asarray(nsym).reshape(-1),
-        )
-        if bool(jnp.any(bad > 0)):
-            raise UnknownSymbolError()
-        if jax.process_count() > 1:
-            from jax.experimental import multihost_utils
-
-            out_np = multihost_utils.process_allgather(out, tiled=True)
-        else:
-            out_np = np.asarray(out)
-        flat = (
-            np.ascontiguousarray(out_np.reshape(ndev, Bp, Kh // 2))
-            .view(np.uint8)
-            .reshape(ndev, Bp, 2 * Kh)[:, :lpd]
-            .reshape(ndev * lpd, 2 * Kh)[:nb]
-        )
-        if (nsymg[: nb - 1] == 2 * Kh).all():
-            return flat.reshape(-1)[: index.total_symbols].tobytes()
-        mask = np.arange(2 * Kh)[None, :] < nsymg[:nb, None]
-        return flat[mask].tobytes()
-
-    def decode(self, data: bytes | np.ndarray, index: BlockIndex) -> bytes:
-        """Block-parallel decode striped over the mesh."""
+        Each device receives the word window its blocks touch and decodes
+        them as lanes of the lane decode (``impl`` from ops/dispatch.py
+        unless given). Raises UnknownSymbolError on a corrupt stream.
+        """
         raw = bytes(data) if isinstance(data, (bytes, bytearray)) else bytes(
             np.asarray(data, dtype=np.uint8).tobytes()
         )
         if index.total_symbols == 0:
             return b""
+        if index.symbols_per_block != self.block_symbols:
+            raise ValueError(
+                f"index has {index.symbols_per_block} symbols per block; "
+                f"this codec decodes {self.block_symbols}"
+            )
+        impl = impl or dispatch.lane_impl("mesh_decode")
         words_np, _ = words_from_bytes_np(raw)
         words_np = np.concatenate([words_np, np.zeros(2, dtype=np.uint32)])
-
-        from .ops import pallas_decode as pd
-
-        if pd.supports(self.table, index.symbols_per_block) and not pd._use_interpret():
-            return self._decode_pallas(words_np, index)
 
         ndev = self._ndev
         B = index.bit_offsets.size
         bpd = -(-B // ndev)  # blocks per device
+        bpd = -(-bpd // lanes.TILE) * lanes.TILE
+        offs = index.bit_offsets.astype(np.int64)
         # Per-shard word windows: shard s covers blocks [s*bpd, (s+1)*bpd).
         first = np.minimum(np.arange(ndev) * bpd, B - 1)
-        word_base = (index.bit_offsets[first].astype(np.int64) // 32).astype(np.int64)
-        # Window size: max words any shard touches.
+        word_base = offs[first] // 32
         ends_bits = np.empty(ndev, dtype=np.int64)
         for s in range(ndev):
             last_b = min((s + 1) * bpd, B) - 1
             if last_b < s * bpd:
                 ends_bits[s] = word_base[s] * 32
             else:
-                ends_bits[s] = int(index.bit_offsets[last_b]) + int(
+                ends_bits[s] = int(offs[last_b]) + int(
                     index.n_symbols[last_b]
                 ) * self.table.max_len
         wmax = int(np.max(-(-(ends_bits - word_base * 32) // 32))) + 2
@@ -721,28 +513,29 @@ class MeshCodec:
             hi = min(lo + wmax, words_np.size)
             win[s, : hi - lo] = words_np[lo:hi]
 
-        rel_offsets = np.zeros((ndev, bpd), dtype=np.int32)
-        n_sym = np.zeros((ndev, bpd), dtype=np.int32)
+        # lanes[s] = (word index within shard s's window, bit phase, count)
+        lane_in = np.zeros((ndev, 3, bpd), dtype=np.int32)
         b_idx = np.arange(B)
         s_of_b = b_idx // bpd
-        rel_offsets.reshape(-1)[:B] = (
-            index.bit_offsets.astype(np.int64) - 32 * word_base[s_of_b]
-        ).astype(np.int32)
-        n_sym.reshape(-1)[:B] = index.n_symbols
+        rel = offs - 32 * word_base[s_of_b]
+        lane_in[s_of_b, 0, b_idx - s_of_b * bpd] = rel >> 5
+        lane_in[s_of_b, 1, b_idx - s_of_b * bpd] = rel & 31
+        lane_in[s_of_b, 2, b_idx - s_of_b * bpd] = index.n_symbols
 
-        syms = self._decode_sharded(
-            jnp.asarray(win).reshape(-1),
-            jnp.asarray(rel_offsets).reshape(-1),
-            jnp.asarray(n_sym).reshape(-1),
+        syms, bad = self._decode_sharded_fn(impl)(
+            jnp.asarray(win).reshape(-1), jnp.asarray(lane_in).reshape(-1)
         )
         if jax.process_count() > 1:
             # Sharded output isn't fully addressable per process: gather the
-            # global value (DCN collective) so every host returns the stream.
+            # global value so every host returns the stream.
             from jax.experimental import multihost_utils
 
             syms_np = multihost_utils.process_allgather(syms, tiled=True)
+            bad_np = multihost_utils.process_allgather(bad, tiled=True)
         else:
-            syms_np = np.asarray(syms)
+            syms_np, bad_np = np.asarray(syms), np.asarray(bad)
+        if (bad_np != 0).any():
+            raise UnknownSymbolError()
         out = syms_np.reshape(ndev * bpd, self.block_symbols)[:B]
         if (index.n_symbols[:-1] == self.block_symbols).all():
             # Blocks are full except possibly the last: flatten then cut.
@@ -753,40 +546,11 @@ class MeshCodec:
         return out[mask].tobytes()
 
 
-def _shard_decode_body_pallas_dual(win, base, rel, relm, nsym, *, Kh, Wb,
-                                   Wbh, G, intervals, p32_flat, interpret):
-    """Per-shard dual-chain Pallas decode; under shard_map.
-
-    win: uint32[wmax] this shard's word window; base/rel/relm/nsym:
-    int32[G*1024] per-LANE-PAIR (word index, half-0 bit, half-1 bit,
-    pair symbol count). Returns (packed symbol tile flattened
-    uint32[G*1024*Kh/2], bad int32[1] poison flag)."""
-    from .ops.pallas_decode import _decode_pipeline_dual
-
-    out, _end, bad = _decode_pipeline_dual(
-        win.reshape(-1), base.reshape(-1), rel.reshape(-1),
-        relm.reshape(-1), nsym.reshape(-1),
-        Kh, Wb, Wbh, G, intervals, p32_flat, interpret,
+def _shard_decode_body(win, lane_in, *, lt, steps, impl):
+    """Per-shard block decode; runs under shard_map (flat 1-D inputs).
+    Returns (symbols uint8[bpd * steps], bad int32[1])."""
+    lane_in = lane_in.reshape(3, -1)
+    syms, _exits, bad, _o, _b = lanes.decode_lanes(
+        win, lane_in[0], lane_in[1], lane_in[2], lt, steps=steps, impl=impl
     )
-    return out.reshape(-1), bad.astype(jnp.int32)[None]
-
-
-def _shard_decode_body(win, rel_offsets, n_sym, l0_bits, l0_val, l1_bits, l1_val,
-                       root_bits, steps):
-    """Per-shard block decode; runs under shard_map (flat 1-D inputs)."""
-    win = win.reshape(-1)
-    offs = rel_offsets.reshape(-1)
-    ns = n_sym.reshape(-1)
-    dt = _LutView(l0_bits, l0_val, l1_bits, l1_val)
-
-    def step(off, i):
-        from .ops.bitpack import extract_windows
-
-        w = extract_windows(win, off)
-        sym, nbits = lut_lookup(w, dt, root_bits)
-        active = i < ns
-        return jnp.where(active, off + nbits, off), sym.astype(jnp.uint8)
-
-    _, syms = jax.lax.scan(step, offs.astype(jnp.int32),
-                           jnp.arange(steps, dtype=jnp.int32))
-    return syms.T.reshape(-1)
+    return syms.reshape(-1), jnp.any(bad != 0).astype(jnp.int32)[None]

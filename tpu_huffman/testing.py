@@ -9,8 +9,30 @@ tests read like the reference's.
 
 from __future__ import annotations
 
+import hashlib
+
 from .stream import HuffmanDecoder, HuffmanEncoder
-from .tables import HuffmanTable
+from .tables import CodeSpec, HuffmanTable
+
+
+def tree_shuffle(table: HuffmanTable, seed: int) -> HuffmanTable:
+    """Random prefix-tree automorphism: flip each node's children by a
+    pseudorandom bit of its prefix. Keeps code lengths and prefix-freeness
+    and destroys the consecutive-codes structure of a canonical table —
+    exactly the freedom the reference generator tolerates
+    (source/huffman_generator/generator.c:236-278)."""
+
+    def flip(prefix: str) -> int:
+        return hashlib.sha256((str(seed) + prefix).encode()).digest()[0] & 1
+
+    specs = []
+    for s in table.specs():
+        bits = format(s.pattern, f"0{s.num_bits}b")
+        out = ""
+        for b in bits:
+            out += str(int(b) ^ flip(out))
+        specs.append(CodeSpec(s.symbol, s.num_bits, int(out, 2)))
+    return HuffmanTable.from_specs(specs, name=table.name + "_shuf")
 
 
 def transitive(
